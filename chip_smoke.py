@@ -4,9 +4,10 @@
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
-  2. kernel vs plain: builds the block GEMM kernel from the sources in the
-     checkout and holds it against its plain PyTorch version in f64, f32
-     and bf16, with k-tiling, ragged edges and an output block with no pair;
+  2. kernel vs plain: builds the three kernels from the sources in the
+     checkout (one nvcc each, all started together) and holds the block GEMM kernel
+     against its plain PyTorch version in f64, f32 and bf16, with k-tiling,
+     ragged edges and an output block with no pair;
   3. small exact check: 3x2 open J1-J2 through run_dmrg(algo="csr") against
      exact diagonalization and against algo="csr_ref" on the card;
   4. full size: J1-J2 (J2=0.5) on the 8x4 cylinder (32 sites), f64,
@@ -17,16 +18,35 @@ Phases (any failure exits non-zero):
      fourfold per sweep (4, 16, 64, 256, 1024), so the last bond is swept
      three times: the fifth sweep reaches m=1024 and the sixth truncates
      there;
-  5. summary lines, then {"ok": true, "device": {...}} as the last line.
+  5. LM kernels vs plain: flash attention (ragged S up to 8192, GQA, head
+     dims 16-128, f32 and bf16, strict causality) and the RWKV6 scan (ragged
+     T, head dims 16 and 64, log-decay down to -exp(6), a carried state);
+  6. llama3_8b at its full published width and depth (random bf16 weights):
+     prefill of B=4 x S=2048 through make_prefill_step (flash launches,
+     time, peak memory); full-width logits of the kernel path against the
+     plain path in bf16 (reported) and with the weights in float32 (held,
+     beside the bf16 model's own distance from the float32 one as the
+     control); then launch/serve.main (4 requests, prompt 16, generate 32);
+  7. rwkv6_3b, the same;
+  8. cached decode against prefill for both architectures at smoke size in
+     f32;
+  9. flash and scan timed at the prefill's shapes against their plain
+     versions (and scaled_dot_product_attention as a yardstick); flash's
+     tolerance checked against plain versions with a planted fault;
+  10. summary lines, then {"ok": true, "device": {...}} as the last line.
 Needs a CUDA card; exits non-zero without one, printing no result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -41,6 +61,30 @@ PEAK_BYTES = 3.35e12
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 5e-2}
 # bond of each sweep of the full-size run (see phase 4 above)
 BONDS = (128, 256, 512, 1024, 1024, 1024)
+# LM prefill shape: B requests of S tokens.  Cut from the reference's
+# prefill_32k (batch 32 x 32768) because the plain path that the kernel
+# path is held against materialises [B, H, S, S] float32 scores.
+LM_BATCH, LM_SEQ = 4, 2048
+# Flash attention vs plain, per output row: max over (b, s, h) of
+# ||got - want|| / ||want||.  float32: the reference's 2e-5 (the order of
+# the sums differs).  bfloat16: the kernel rounds p to bf16 for p @ v and
+# rounds its output (2^-9 relative each), and read up to 6.5e-3 on an H100;
+# plain versions that drop one key tile, or leave one tile's share out of
+# the softmax denominator, in the last query tile read 0.63 and 7.0e-2
+# (PERF.md).  The limit sits between, and phase 9 checks that both planted
+# faults still read above it.
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# The scan vs plain, relative to the largest |value| of the plain result:
+# the reference's 2e-4 (tests/test_kernels.py); bf16 inputs are computed in
+# float32 by both, so bf16 adds only the output's own rounding.
+SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+# Full-width logits with the weights cast to float32, kernel path vs plain
+# path, per token: max over (b, s) of ||got - want|| / ||want|| over the
+# vocabulary.  The control that must read above it: the plain path with the
+# weights in bf16 against the same path in float32.  In bf16 the kernel and
+# plain paths are compared and reported, not held: the random-init models
+# amplify one rounding through their 32 layers (scripts/lm_divergence.py).
+F32_LOGITS_TOL = {"llama3_8b": 1e-4, "rwkv6_3b": 1e-2}
 
 
 def log(*args):
@@ -68,6 +112,12 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
     diff = (got.double() - want.double()).abs().max().item()
     scale = max(want.double().abs().max().item(), 1e-300)
     return diff, diff / scale
+
+
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest over rows (every index but the last) of ||got - want|| / ||want||."""
+    g, w = got.reshape(-1, got.shape[-1]).double(), want.reshape(-1, want.shape[-1]).double()
+    return ((g - w).norm(dim=1) / w.norm(dim=1).clamp_min(1e-300)).max().item()
 
 
 # ----------------------------------------------------------------- phase 2
@@ -193,6 +243,290 @@ def middle_bond_matvec(engine, res, mpo, dev):
     return j, rows
 
 
+# ----------------------------------------------------------------- phase 5
+def lm_kernel_cases(dev):
+    """Flash attention and the RWKV6 scan against their plain versions on
+    synthetic inputs; returns {kernel: {dtype: worst relative error}}."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    worst = {"flash_attention": {}, "rwkv6_scan": {}}
+
+    def check(name, dtype, label, got, want, tol):
+        rel = row_rel_err(got, want) if name == "flash_attention" else rel_err(got, want)[1]
+        worst[name][str(dtype)[6:]] = max(worst[name].get(str(dtype)[6:], 0.0), rel)
+        if not rel <= tol:
+            fail(f"{name} {label} {dtype}: rel err {rel:.3e} > {tol}")
+        return rel
+
+    # (B, H, Hkv, S, D): every S x D at n_rep 1 and 4, then S=8192 at BH=2
+    cases = [(1, 4, 4 // rep, s, d) for s in (1, 37, 128, 300, 2048) for d in (16, 48, 64, 128) for rep in (1, 4)]
+    cases += [(1, 2, 2, 8192, 128), (1, 2, 1, 8192, 128)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, hkv, s, d in cases:
+            q = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+            k = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dtype)
+            v = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dtype)
+            got = flash_attention_bshd(q, k, v)
+            torch.cuda.synchronize()
+            check("flash_attention", dtype, f"B={b} H={h} Hkv={hkv} S={s} D={d}", got,
+                  flash_attention_bshd(q, k, v, use_kernel=False), FLASH_TOL[dtype])
+        # strict causality: future keys and values change no earlier output
+        q, k, v = (torch.randn(1, 256, 2, 64, generator=g, device=dev).to(dtype) for _ in range(3))
+        o1 = flash_attention_bshd(q, k, v)
+        k[:, 128:], v[:, 128:] = 99.0, -99.0
+        if not torch.equal(o1[:, :128], flash_attention_bshd(q, k, v)[:, :128]):
+            fail(f"flash_attention {dtype}: outputs depend on future keys")
+        for t in (1, 33, 64, 2048):
+            for n in (16, 64):
+                b, h = 2, 2
+                r, kk = ((0.5 * torch.randn(b, t, h, n, generator=g, device=dev)).to(dtype) for _ in range(2))
+                vv = torch.randn(b, t, h, n, generator=g, device=dev).to(dtype)
+                # log-decay from -exp(-8) down to -exp(6), the model's clip
+                logw = -torch.exp(torch.rand(b, t, h, n, generator=g, device=dev) * 14.0 - 8.0)
+                u = 0.1 * torch.randn(h, n, generator=g, device=dev)
+                s0 = 0.1 * torch.randn(b, h, n, n, generator=g, device=dev)
+                got, s_got = rwkv6_wkv(r, kk, vv, logw, u, state=s0)
+                torch.cuda.synchronize()
+                want, s_want = rwkv6_wkv(r, kk, vv, logw, u, state=s0, use_kernel=False)
+                label = f"B={b} H={h} T={t} N={n}"
+                check("rwkv6_scan", dtype, label, got, want, SCAN_TOL[dtype])
+                check("rwkv6_scan", torch.float32, label + " state", s_got, s_want, SCAN_TOL[torch.float32])
+    for name, w in worst.items():
+        metric = "per-row relative" if name == "flash_attention" else "relative to max |value|"
+        log(f"  {name} worst error vs plain ({metric}): " + ", ".join(f"{k} {v:.2e}" for k, v in w.items()))
+    return worst
+
+
+# ------------------------------------------------------------- phases 6, 7
+def lm_full_width(arch: str, dev):
+    """One architecture at its published width and depth, random bf16
+    weights: prefill through make_prefill_step, the kernel path's full
+    logits against the plain path's, then launch/serve.main."""
+    from repro_torch import kernels, models
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.specs import make_prefill_step
+
+    cfg = get_config(arch)
+    kernel = "flash_attention" if cfg.family == "dense" else "rwkv6_scan"
+    t0 = time.perf_counter()
+    params = models.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    weights_gb = sum(p.numel() * p.element_size() for p in params.values()) / 1e9
+    rec = dict(arch=arch, kernel=kernel, weights_gb=weights_gb, init_s=time.perf_counter() - t0,
+               batch=LM_BATCH, seq=LM_SEQ)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(cfg)
+    prefill(params, batch)  # warm-up: cuBLAS handles, kernel library load
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    nxt = prefill(params, batch)
+    torch.cuda.synchronize()
+    rec["prefill_s"] = time.perf_counter() - t0
+    rec["launches"] = dict(kernels.LAUNCHES)
+    rec["prefill_tok_s"] = LM_BATCH * LM_SEQ / rec["prefill_s"]
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if rec["launches"][kernel] != cfg.n_layers:
+        fail(f"{arch} prefill launched {kernel} {rec['launches'][kernel]} times, not once per layer ({cfg.n_layers})")
+    if tuple(nxt.shape) != (LM_BATCH, cfg.vocab_size) or not bool(torch.isfinite(nxt).all()):
+        fail(f"{arch} prefill: next-token logits {tuple(nxt.shape)}, finite={bool(torch.isfinite(nxt).all())}")
+    del nxt
+
+    # the kernel path's full-width logits against the plain path's: in bf16
+    # (reported), then with the weights in float32 (held)
+    t0 = time.perf_counter()
+    got = models.forward(cfg, params, batch)[..., : cfg.vocab_size]
+    torch.cuda.synchronize()
+    rec["forward_kernel_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = models.forward(cfg, params, batch, use_kernel=False)[..., : cfg.vocab_size]
+    torch.cuda.synchronize()
+    rec["forward_plain_s"] = time.perf_counter() - t0
+    rec["logits_max_abs"] = want.float().abs().max().item()
+    rec["logits_max_abs_err"] = max((got[i].float() - want[i].float()).abs().max().item() for i in range(LM_BATCH))
+    rec["logits_rel_err"] = rec["logits_max_abs_err"] / rec["logits_max_abs"]
+    rec["logits_row_rel_err"] = logits_row_dist(got, want)
+    rec["argmax_agree"] = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    rec["logits_finite"] = bool(torch.isfinite(got).all())
+    del got
+    params = {k: v.float() for k, v in params.items()}
+    torch.cuda.empty_cache()
+    got = models.forward(cfg, params, batch)[..., : cfg.vocab_size]
+    want32 = models.forward(cfg, params, batch, use_kernel=False)[..., : cfg.vocab_size]
+    rec["f32_logits_row_rel_err"] = logits_row_dist(got, want32)
+    rec["bf16_vs_f32_row_rel_err"] = logits_row_dist(want, want32)  # the control
+    del got, want, want32, params
+    torch.cuda.empty_cache()
+
+    # serving: cached decode through the entry point, its own weights
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        gen = serve.main(["--arch", arch, "--batch", str(LM_BATCH), "--prompt-len", "16", "--gen-len", "32"])
+    rec["serve_s"] = time.perf_counter() - t0
+    out = buf.getvalue()
+    found = re.search(r"steps in ([0-9.]+)s \(([0-9.]+) tok/s decode\); first step ([0-9.]+)s, then ([0-9.]+) tok/s", out)
+    if found:  # decode_tok_s: the steps after the first, one window of 4 x 47
+        rec["decode_s"], rec["decode_all_tok_s"], rec["decode_first_step_s"], rec["decode_tok_s"] = map(
+            float, found.groups())
+    rec["serve_launches"] = dict(kernels.LAUNCHES)
+    log(f"  serve.main: {out.strip().splitlines()[0] if out.strip() else '(no output)'}")
+    if tuple(gen.shape) != (LM_BATCH, 32) or found is None:
+        fail(f"{arch} serve.main returned {tuple(gen.shape)} tokens; output {out!r}")
+    del gen
+    torch.cuda.empty_cache()
+    log(f"  {arch} " + json.dumps(rec))
+    if not rec["logits_finite"]:
+        fail(f"{arch} bf16 logits of the kernel path are not finite")
+    tol = F32_LOGITS_TOL[arch]
+    if not rec["f32_logits_row_rel_err"] <= tol < rec["bf16_vs_f32_row_rel_err"]:
+        fail(f"{arch} float32 logits: kernel vs plain per-token rel err {rec['f32_logits_row_rel_err']:.3e} and the "
+             f"control (bf16 vs float32 weights) {rec['bf16_vs_f32_row_rel_err']:.3e} do not bracket {tol}")
+    return rec
+
+
+def logits_row_dist(a, b) -> float:
+    """row_rel_err over [B, S, V] logits, one request at a time."""
+    return max(row_rel_err(a[i], b[i]) for i in range(a.shape[0]))
+
+
+# ----------------------------------------------------------------- phase 8
+def decode_vs_prefill(dev):
+    """Cached decode reproduces the kernel path's teacher-forced logits at
+    smoke size in f32, to the reference's 2e-3 (tests/test_models.py)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    worst = {}
+    for arch in ("llama3_8b", "rwkv6_3b"):
+        cfg = get_config(arch).smoke()
+        params = models.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        s = 40
+        tok = torch.randint(0, cfg.vocab_size, (2, s), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        full = models.forward(cfg, params, {"tokens": tok})
+        cache = models.init_cache(cfg, 2, s, dev)
+        dec = []
+        for t in range(s):
+            logits, cache = models.decode_step(cfg, params, cache, tok[:, t], t)
+            dec.append(logits)
+        dec = torch.stack(dec, 1)
+        bad = (dec - full).abs() > 2e-3 + 2e-3 * full.abs()
+        worst[arch] = (dec - full).abs().max().item()
+        log(f"  {arch} smoke f32: decode vs prefill max abs diff {worst[arch]:.2e}")
+        if bool(bad.any()):
+            fail(f"{arch}: decode differs from prefill beyond rtol/atol 2e-3")
+    return worst
+
+
+# ----------------------------------------------------------------- phase 9
+def lm_kernel_timings(dev):
+    """Flash attention and the scan timed at the prefill's shapes, each
+    against its plain version; flash also against PyTorch's
+    scaled_dot_product_attention (the yardstick only: the port never calls
+    it).  Bounds from this run's shapes and the H100 SXM data sheet."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = {}
+    # flash: llama3_8b's attention at B=4, S=2048: 32 query heads, 8 KV heads, D=128, bf16
+    b, s, h, hkv, d = LM_BATCH, LM_SEQ, 32, 8, 128
+    q = torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(b, s, hkv, d, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(b, s, hkv, d, generator=g, device=dev).to(torch.bfloat16)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
+    fns = dict(ms=lambda: flash_attention_bshd(q, k, v), plain_ms=lambda: flash_attention_bshd(q, k, v, use_kernel=False),
+               library_ms=sdpa)
+    got, want = fns["ms"](), fns["plain_ms"]()
+    err = rel_err(got, want)[0]
+    rel = row_rel_err(got, want)
+    lib_err = row_rel_err(sdpa().transpose(1, 2), want)
+    controls = flash_controls(q, k, v, want)
+    del got, want
+    tol = FLASH_TOL[torch.bfloat16]
+    log(f"  flash bf16 per-row rel err {rel:.3e}, limit {tol}, planted-fault controls "
+        + ", ".join(f"{name} {c:.3e}" for name, c in controls.items()))
+    if not min(controls.values()) > tol:
+        fail(f"flash bf16 limit {tol} does not reject every planted fault: {controls}")
+    ops = 4.0 * d * b * h * s * (s + 1) / 2  # q k^T and p v over the causal pairs
+    nbytes = 2.0 * (2 * b * s * h * d + 2 * b * s * hkv * d)  # q, o and k, v in bf16
+    rows["flash_attention"] = dict(shape=dict(B=b, S=s, H=h, Hkv=hkv, D=d, dtype="bfloat16"), max_abs_err=err, rel_err=rel,
+                                   library_rel_err=lib_err, fault_controls=controls, ops=ops, bytes=nbytes,
+                                   **timed(fns, dict(ms=20, plain_ms=3, library_ms=20)),
+                                   **bound(ops, 989e12, nbytes))
+    del q, k, v
+    # scan: rwkv6_3b's time-mix at B=4, T=2048: 40 heads of 64, r/k/v bf16
+    b, t, h, n = LM_BATCH, LM_SEQ, 40, 64
+    r, kk = ((0.5 * torch.randn(b, t, h, n, generator=g, device=dev)).to(torch.bfloat16) for _ in range(2))
+    vv = torch.randn(b, t, h, n, generator=g, device=dev).to(torch.bfloat16)
+    logw = -torch.exp(torch.randn(b, t, h, n, generator=g, device=dev).clamp(-8.0, 6.0))
+    u = 0.1 * torch.randn(h, n, generator=g, device=dev)
+    fns = dict(ms=lambda: rwkv6_wkv(r, kk, vv, logw, u), plain_ms=lambda: rwkv6_wkv(r, kk, vv, logw, u, use_kernel=False))
+    (got, s_got), (want, s_want) = fns["ms"](), fns["plain_ms"]()
+    err, rel = rel_err(got, want)
+    c = 32  # the kernel's chunk; T is a multiple of it here
+    per_chunk = (4 * c * n * n + n * n          # carry-in, state update
+                 + 3 * n * c * (c - 1) / 2       # pairwise r k exp(.) terms
+                 + 3 * n * c                     # bonus
+                 + 2 * n * c * (c + 1) / 2       # scores @ v
+                 + 4 * c * n)                    # cumulative decay, r and k rescaled
+    ops = per_chunk * (t // c) * b * h
+    nbytes = 2.0 * 4 * b * t * h * n + 4.0 * b * t * h * n + 4.0 * h * n + 4.0 * b * h * n * n  # r,k,v,out; logw; u; state
+    rows["rwkv6_scan"] = dict(shape=dict(B=b, T=t, H=h, N=n, dtype="bfloat16", chunk=c), max_abs_err=err, rel_err=rel,
+                              state_rel_err=rel_err(s_got, s_want)[1], ops=ops, bytes=nbytes, library_ms=None,
+                              **timed(fns, dict(ms=20, plain_ms=1)), **bound(ops, 67e12, nbytes))
+    for name, row in rows.items():
+        log(f"  timing {name} " + json.dumps(row))
+        if not row["rel_err"] <= (FLASH_TOL if name == "flash_attention" else SCAN_TOL)[torch.bfloat16]:
+            fail(f"{name} at the prefill's shape: kernel vs plain rel err {row['rel_err']:.3e}")
+    return rows
+
+
+def flash_controls(q, k, v, want, tile: int = 64) -> dict:
+    """Plain attention with a planted fault in the rows of the last query
+    tile, each held against ``want`` by the per-row metric: one key tile in
+    the middle of the sequence dropped, and that tile's share left out of the
+    softmax denominator.  Both must read above the bf16 limit."""
+    b, s, h, d = q.shape
+    rep = h // k.shape[2]
+    kk, vv = (a.float().repeat_interleave(rep, dim=2) for a in (k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q[:, s - tile:].float(), kk) / d**0.5
+    causal = torch.arange(s, device=q.device)[None, :] <= torch.arange(s - tile, s, device=q.device)[:, None]
+    e = torch.where(causal, logits, -torch.inf)
+    e = (e - e.amax(-1, keepdim=True)).exp()
+    mid = slice(s // 2, s // 2 + tile)
+    dropped = e.clone()
+    dropped[..., mid] = 0.0
+    faults = dict(key_tile_dropped=(dropped, dropped.sum(-1, keepdim=True)),
+                  denominator_tile_dropped=(e, dropped.sum(-1, keepdim=True)))
+    return {name: row_rel_err(torch.einsum("bhqk,bkhd->bqhd", p, vv).div(l.transpose(1, 2)).to(want.dtype),
+                              want[:, s - tile:])
+            for name, (p, l) in faults.items()}
+
+
+def timed(fns, reps):
+    """Each function's time, the faster of two interleaved CUDA-event means."""
+    runs = {k: [] for k in fns}
+    for _ in range(2):
+        for k, fn in fns.items():
+            runs[k].append(time_ms(fn, reps[k]))
+    return {**{k: min(v) for k, v in runs.items()}, "runs": runs}
+
+
+def bound(ops: float, peak_ops: float, nbytes: float) -> dict:
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_ops_ms=t_ops, bound_bytes_ms=t_bytes)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "chip_smoke.json"), help="JSON record of the run")
@@ -212,26 +546,31 @@ def main():
     from repro_torch.core.models import heisenberg_j1j2_terms
     from repro_torch.core.mpo import build_mpo, compress_mpo, mpo_bond_dims
     from repro_torch.core.siteops import spin_half_space
-    from repro_torch.kernels.block_gemm.ops import SOURCE
+    from repro_torch.kernels.block_gemm import ops as block_gemm_ops
     from repro_torch.kernels.build import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv6_scan import ops as scan_ops
 
     # ---- phase 1: device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    log(f"phase 1: {name} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
-    record = {"device": name, "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    device_name = torch.cuda.get_device_name(0)
+    log(f"phase 1: {device_name} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+    record = {"device": device_name, "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     # ---- phase 2: build + kernel vs plain
+    sources = [block_gemm_ops.SOURCE, flash_ops.SOURCE, scan_ops.SOURCE]
     t0 = time.perf_counter()
-    build_log = build(SOURCE).with_suffix(".log").read_text()
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:  # one nvcc each, all started together
+        libs = list(pool.map(build, sources))
     record["build_s"] = time.perf_counter() - t0
-    log(f"phase 2: built {SOURCE.name} in {record['build_s']:.1f} s")
-    for line in build_log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "spill" in line):
-            log("  " + line.strip())
+    log(f"phase 2: built {', '.join(src.name for src in sources)} in parallel in {record['build_s']:.1f} s")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "ptxas info" in line and ("Used" in line or "spill" in line):
+                log("  " + line.strip())
     worst = kernel_cases(dev)
     record["kernel_cases_rel_err"] = {str(k)[6:]: v for k, v in worst.items()}
 
@@ -287,27 +626,66 @@ def main():
     record.update(full_size=dict(bonds=BONDS, sweeps=sweeps, wall_s=wall, launches=launches, peak_gib=peak_gb,
                                  middle_bond=j, matvec_steps=mid))
 
-    # ---- phase 5: summary
+    # ---- phase 5: LM kernels vs plain
+    log("phase 5: flash attention and RWKV6 scan vs plain")
+    record["lm_kernel_cases_rel_err"] = lm_kernel_cases(dev)
+
+    # ---- phases 6, 7: the LM serving path at full width
+    record["lm"] = {}
+    for phase, arch in ((6, "llama3_8b"), (7, "rwkv6_3b")):
+        log(f"phase {phase}: {arch} at full width, prefill B={LM_BATCH} x S={LM_SEQ}, then serve.main")
+        record["lm"][arch] = lm_full_width(arch, dev)
+
+    # ---- phase 8: decode vs prefill
+    log("phase 8: cached decode vs prefill, smoke size, f32")
+    record["decode_vs_prefill_max_abs"] = decode_vs_prefill(dev)
+
+    # ---- phase 9: LM kernel timings
+    log("phase 9: flash attention and RWKV6 scan timed at the prefill's shapes")
+    timing = lm_kernel_timings(dev)
+    record["lm_kernel_timings"] = timing
+
+    # ---- phase 10: summary
     total = lambda k: sum(r[k] for r in mid)
     bound_ops = sum(r["bound_ms"] for r in mid if r["bound_by"] == "operations")
-    entry = dict(
+    entries = [dict(
         name="block_gemm", route="cuda", source="src/repro_torch/kernels/block_gemm/block_gemm.cu",
         replaces="src/repro/kernels/block_gemm/kernel.py:59", launches=launches["block_gemm"],
         max_abs_err=max(r["max_abs_err"] for r in mid), ms=total("ms"), plain_ms=total("plain_ms"),
         bound_ms=total("bound_ms"), bound_by="operations" if bound_ops >= total("bound_ms") / 2 else "bytes",
         library_ms=total("library_ms"),
-    )
-    record["kernels"] = [entry]
+    )]
+    for name, arch, replaces in (
+        ("flash_attention", "llama3_8b", "src/repro/kernels/flash_attention/kernel.py:70"),
+        ("rwkv6_scan", "rwkv6_3b", "src/repro/kernels/rwkv6_scan/kernel.py:71"),
+    ):
+        row = timing[name]
+        entries.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/{name}/{name}.cu", replaces=replaces,
+            launches=record["lm"][arch]["launches"][name], max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+        ))
+    record["kernels"] = entries
     record["total_s"] = time.perf_counter() - t_start
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1))
     log("kernels: block_gemm " + " ".join(f"{str(k)[6:]}={v:.2e}" for k, v in worst.items())
-        + f" middle-bond-f64={max(r['rel_err'] for r in mid):.2e} (relative)")
+        + f" middle-bond-f64={max(r['rel_err'] for r in mid):.2e} (relative to max |value|)")
+    for name, w in record["lm_kernel_cases_rel_err"].items():
+        metric = "per-row relative" if name == "flash_attention" else "relative to max |value|"
+        log(f"kernels: {name} " + " ".join(f"{k}={v:.2e}" for k, v in w.items()) + f" ({metric})")
+    for arch, rec in record["lm"].items():
+        log(f"{arch}: prefill {rec['prefill_s']:.3f} s ({rec['prefill_tok_s']:.0f} tok/s), {rec['launches'][rec['kernel']]} "
+            f"{rec['kernel']} launches, peak {rec['peak_gib']:.2f} GiB, bf16 logits kernel vs plain "
+            f"{rec['logits_rel_err']:.2e} of max |logit| (per token {rec['logits_row_rel_err']:.2e}), argmax agree "
+            f"{rec['argmax_agree']:.4f}; f32 logits per token {rec['f32_logits_row_rel_err']:.2e} (control "
+            f"{rec['bf16_vs_f32_row_rel_err']:.2e}); decode {rec['decode_tok_s']} tok/s after the first step "
+            f"({rec['decode_first_step_s']} s)")
     log(f"total {record['total_s']:.1f} s")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0
 
 

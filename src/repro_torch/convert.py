@@ -47,3 +47,49 @@ def mpo_from_arrays(tensors: Sequence[TensorArrays], *, device=None, dtype=torch
 def mps_from_arrays(tensors: Sequence[TensorArrays], *, device=None, dtype=torch.float64) -> MPS:
     """An MPS from plain data, one triple per site."""
     return MPS(mpo_from_arrays(tensors, device=device, dtype=dtype))
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy array (bfloat16 included, which numpy knows only through
+    ``ml_dtypes``) as a tensor of the same dtype on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _lm_arrays(arrays: Dict[str, np.ndarray], cfg, want: Dict[str, Tuple[int, ...]], what: str, device):
+    """Checks ``arrays`` against the port's keys and shapes ``want`` and
+    carries them across."""
+    device = resolve_device(device)
+    if set(arrays) != set(want):
+        raise ValueError(f"{cfg.name} {what}: keys differ from the port's: "
+                         f"missing {sorted(set(want) - set(arrays))}, extra {sorted(set(arrays) - set(want))}")
+    out = {}
+    for k, shape in want.items():
+        if tuple(np.shape(arrays[k])) != shape:
+            raise ValueError(f"{cfg.name} {what} {k}: shape {np.shape(arrays[k])}, the port's is {shape}")
+        out[k] = _tensor(arrays[k], device)
+    return out
+
+
+def lm_params_from_numpy(params: Dict[str, np.ndarray], cfg, device=None) -> Dict[str, torch.Tensor]:
+    """LM parameters from the reference's flat dict of arrays (``np.asarray``
+    of each leaf, the layers stacked under ``blocks/`` with a leading
+    ``n_layers`` axis), on ``device`` (``None`` means the CUDA card).  The
+    port keeps the same keys, shapes and dtypes."""
+    from .models.lm import init_lm
+
+    shapes = {k: tuple(v.shape) for k, v in init_lm(cfg, None, torch.device("meta")).items()}
+    return _lm_arrays(params, cfg, shapes, "params", device)
+
+
+def convert_cache(cache: Dict[str, np.ndarray], cfg, device=None) -> Dict[str, torch.Tensor]:
+    """A decode cache from the reference's flat dict of arrays, so that a
+    decode can resume from the reference's state."""
+    from .models.lm import init_decode_cache
+
+    batch = np.shape(next(iter(cache.values())))[1]  # every entry is [n_layers, batch, ...]
+    cache_len = np.shape(cache["blocks/L0/k"])[2] if "blocks/L0/k" in cache else 0
+    meta = init_decode_cache(cfg, batch, cache_len, torch.device("meta"))
+    return _lm_arrays(cache, cfg, {k: tuple(v.shape) for k, v in meta.items()}, "cache", device)

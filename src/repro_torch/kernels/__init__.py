@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"block_gemm": 0}
+LAUNCHES: Dict[str, int] = {"block_gemm": 0, "flash_attention": 0, "rwkv6_scan": 0}
 
 
 def reset_launches() -> None:
