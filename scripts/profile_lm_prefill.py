@@ -29,7 +29,7 @@ BATCH, SEQ = 4, 2048
 
 def kind(name: str) -> str:
     low = name.lower()
-    if "flash_mma" in low or "flash_simple" in low:
+    if "flash_wgmma" in low or "flash_mma" in low or "flash_simple" in low:
         return "flash_attention"
     if "rwkv6_scan" in low:
         return "rwkv6_scan"

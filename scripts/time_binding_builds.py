@@ -34,16 +34,18 @@ BINDING = r"""
 #include <torch/extension.h>
 #include <c10/cuda/CUDAStream.h>
 
-extern "C" int block_gemm_launch(int dtype, const void* lhs, const void* rhs,
-                                 const void* seg, const void* ext, void* out,
-                                 int num_out, int BM, int BK, int BN, void* stream);
+extern "C" int block_gemm_launch(int dtype, int route, const void* lhs, const void* rhs, const void* ext,
+                                 const void* items, int n_items, const void* fix, const void* tile_fix,
+                                 void* ws, void* out, int num_out, int BM, int BK, int BN, void* stream);
 
-torch::Tensor block_gemm(torch::Tensor lhs, torch::Tensor rhs, torch::Tensor seg, int64_t num_out) {
+torch::Tensor block_gemm(torch::Tensor lhs, torch::Tensor rhs, torch::Tensor items, torch::Tensor fix,
+                         torch::Tensor tile_fix, torch::Tensor ws, int64_t route, int64_t num_out) {
   TORCH_CHECK(lhs.is_cuda() && lhs.is_contiguous() && rhs.is_contiguous(), "contiguous CUDA operands");
   TORCH_CHECK(lhs.scalar_type() == torch::kFloat64, "float64 only in this timing binding");
   auto out = torch::empty({num_out, lhs.size(1), rhs.size(2)}, lhs.options());
-  int err = block_gemm_launch(0, lhs.data_ptr(), rhs.data_ptr(), seg.data_ptr(), nullptr,
-                              out.data_ptr(), num_out, lhs.size(1), lhs.size(2), rhs.size(2),
+  int err = block_gemm_launch(0, route, lhs.data_ptr(), rhs.data_ptr(), nullptr, items.data_ptr(),
+                              items.size(0), fix.data_ptr(), tile_fix.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                              num_out, lhs.size(1), lhs.size(2), rhs.size(2),
                               c10::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == 0, "block_gemm launch failed: cudaError ", err);
   return out;
@@ -96,8 +98,10 @@ def main():
     out_idx = [0, 0, 1, 2, 2]
     a = ops.block_sparse_matmul(lhs, rhs, out_idx, 3)
     if ext is not None:
-        seg = torch.from_numpy(ops.segments(out_idx, 3)).to(dev)
-        b = ext.block_gemm(lhs, rhs, seg, 3)
+        work = ops.work_list(ops.segments(out_idx, 3), None, 70, 33, 45)
+        items, fix, tile_fix = work.tables(dev)
+        ws = torch.empty((work.n_slots, work.tm, work.tn), dtype=torch.float64, device=dev)
+        b = ext.block_gemm(lhs, rhs, items, fix, tile_fix, ws, 0 if work.route == "tiled" else 1, 3)
         torch.cuda.synchronize()
         rec["results_equal"] = bool(torch.equal(a, b))
     print(json.dumps(rec))

@@ -81,22 +81,23 @@ class ContractionEngine:
 
     def pack_csr(self, plan: ContractionPlan, a: BlockSparseTensor, b: BlockSparseTensor):
         """The block GEMM's operands for this contraction: ``(lhs, rhs,
-        out_idx, seg, extents)`` with lhs [P, BM, BK] and rhs [P, BK, BN]
-        gathered per pair, ``out_idx`` the host table, ``seg``/``extents``
-        the layout's tables on the operands' device."""
+        out_idx, work, extents)`` with lhs [P, BM, BK] and rhs [P, BK, BN]
+        gathered per pair, ``out_idx`` the host table, ``work`` the
+        layout's kernel work list and ``extents`` its per-pair table on the
+        operands' device."""
         L = plan.csr
         lhs_all = pack_blocks(a, L.a_keys, plan.keep_a, plan.ax_a, L.bm, L.bk, True)
         rhs_all = pack_blocks(b, L.b_keys, plan.keep_b, plan.ax_b, L.bk, L.bn, False)
-        li, ri, seg, ext = L.device_tables(lhs_all.device)
-        return lhs_all.index_select(0, li), rhs_all.index_select(0, ri), L.oi, seg, ext
+        li, ri, ext = L.device_tables(lhs_all.device)
+        return lhs_all.index_select(0, li), rhs_all.index_select(0, ri), L.oi, L.work, ext
 
     def _execute_csr(self, plan: ContractionPlan, a: BlockSparseTensor, b: BlockSparseTensor) -> BlockSparseTensor:
         if not plan.pairs:
             return BlockSparseTensor(plan.out_indices, {}, plan.out_charge)
         L = plan.csr
-        lhs, rhs, oi, seg, ext = self.pack_csr(plan, a, b)
+        lhs, rhs, oi, work, ext = self.pack_csr(plan, a, b)
         out_padded = block_sparse_matmul(
-            lhs, rhs, oi, len(L.out_keys), seg=seg, extents=ext, use_kernel=self.use_kernel
+            lhs, rhs, oi, len(L.out_keys), work=work, extents=ext, use_kernel=self.use_kernel
         )
         out_blocks: Dict[BlockKey, torch.Tensor] = {}
         for o, (kc, (r, c)) in enumerate(zip(L.out_keys, L.out_rc)):

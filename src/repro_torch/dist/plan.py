@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..kernels.block_gemm.ops import segments
+from ..kernels.block_gemm.work import WorkList, work_list
 from ..tensor.blocksparse import BlockKey, BlockSparseTensor
 from ..tensor.qn import Charge, Index, qadd
 
@@ -64,15 +65,22 @@ class CsrLayout:
     out_keys: Tuple[BlockKey, ...]        # output key per output slot
     out_rc: Tuple[Tuple[int, int], ...]   # unpadded (rows, cols) per out slot
     dev_idx: Dict = dataclasses.field(default_factory=dict)
+    _work: Optional[WorkList] = None
+
+    @property
+    def work(self) -> WorkList:
+        """The block GEMM kernel's work list of this layout, built once."""
+        if self._work is None:
+            self._work = work_list(self.seg, self.extents, self.bm, self.bk, self.bn)
+        return self._work
 
     def device_tables(self, device: torch.device):
-        """(li, ri, seg, extents) on ``device``, uploaded once per device."""
+        """(li, ri, extents) on ``device``, uploaded once per device."""
         tables = self.dev_idx.get(device)
         if tables is None:
             tables = (
                 torch.from_numpy(self.li.astype(np.int64)).to(device),
                 torch.from_numpy(self.ri.astype(np.int64)).to(device),
-                torch.from_numpy(self.seg).to(device),
                 torch.from_numpy(self.extents).to(device),
             )
             self.dev_idx[device] = tables

@@ -14,7 +14,8 @@
 // true D.  What differs: the TPU wrapper broadcast the GQA heads and padded
 // D to 128 lanes, and the kernel asserted S divisible by its tiles.  Here
 // each CTA reads its KV head h / n_rep in place, D is taken as it is (up to
-// 256), and a ragged S is handled by bounds checks.  On the TPU the key axis
+// 256), and a ragged S is handled by bounds checks (flash_wgmma: by
+// TMA's zero fill and the causal mask).  On the TPU the key axis
 // was a sequential grid dimension carrying the accumulators in VMEM; here it
 // is a loop inside the CTA, with the accumulators in registers.
 //
@@ -22,23 +23,38 @@
 // head) on 4 * S * D elements of q, k, v, o, so at prefill lengths
 // (S = 2048, D = 128) it is bound by the bf16 tensor cores, not by HBM.
 //
-// Two kernels, one CTA per (query tile of 64 rows, batch * head), longest
-// tiles (most keys) launched first:
-//   flash_mma     bfloat16 with D % 16 == 0 (the model's path): 4 warps,
-//                 16 query rows each, mma.sync m16n8k16 bf16 -> f32 for
-//                 q k^T and p v; q, k and v tiles staged row-major in
-//                 shared memory, 64 keys per tile, v's fragments read
-//                 transposed by ldmatrix; p rounded to bf16 for p v.
+// Three kernels, longest query tiles (most keys) launched first; the
+// launcher picks one by dtype and D before any launch:
+//   flash_wgmma   bfloat16 with D in {64, 128} (the model's path: llama3_8b
+//                 has D = 128).  One CTA per (128-query tile, batch * head)
+//                 of three warpgroups.  A producer warpgroup, of which one
+//                 thread issues TMA and the rest give up their registers
+//                 (setmaxnreg), loads the Q tile once and K and V tiles of
+//                 128 keys into a two-stage ring, each stage with full and
+//                 empty mbarriers; TMA's out-of-bounds zero fill covers a
+//                 ragged S.  Two consumer warpgroups of 64 query rows each compute
+//                 S = Q K^T with wgmma m64n128k16 (both operands K-major in
+//                 shared memory, 128-byte swizzle), the online softmax in
+//                 registers, and O += P V with wgmma m64nDk16
+//                 taking P from registers (the f32 accumulator fragment
+//                 rounded to bf16 pairs is the register-A fragment) and V,
+//                 stored [keys, D], as an MN-major B operand (transpose bit).
+//                 Only the diagonal key tile is masked.
+//   flash_mma     other bfloat16 with D % 16 == 0: 4 warps, 16 query rows
+//                 each, mma.sync m16n8k16 bf16 -> f32 for q k^T and p v; q, k
+//                 and v tiles staged row-major in shared memory by plain
+//                 loads, 64 keys per tile, v's fragments read transposed by
+//                 ldmatrix; p rounded to bf16 for p v.
 //   flash_simple  float32 (and bf16 with other D): the same algorithm on
 //                 the CUDA cores in float32, 32 keys per tile, a 4 x 2
 //                 score micro-tile per thread.
-// Neither is pipelined (no cp.async/TMA double buffering, no wgmma): that
-// is later work.
+#include <cuda.h>  // CUtensorMap and its enums only: nothing is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <initializer_list>
 
 namespace {
 
@@ -408,6 +424,418 @@ __global__ void __launch_bounds__(M_THREADS)
   }
 }
 
+// ------------------------------------------------------------- flash_wgmma
+constexpr int W_BQ = 128;     // query rows per CTA: two consumer warpgroups of 64
+constexpr int W_BK = 128;     // keys per K/V tile
+constexpr int W_STAGES = 2;   // K/V ring depth
+constexpr int W_THREADS = 384;
+constexpr int W_PANEL = 128 * 128;  // bytes of one 64-column panel of a 128-row tile
+
+// Shared memory, as byte offsets from a 1024-byte aligned base (the 128-byte
+// swizzle repeats every 1024 bytes).  A [128, D] tile is D / 64 panels of
+// [128 rows][64 bf16], each as TMA writes it with the 128-byte swizzle.
+template <int D>
+struct WgmmaSmem {
+  static constexpr int TILE = 128 * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + TILE;
+  static constexpr int V = K + W_STAGES * TILE;
+  static constexpr int BAR = V + W_STAGES * TILE;  // q_full, then per stage k_full, v_full, k_empty, v_empty
+  static constexpr int BYTES = BAR + 8 * (1 + 4 * W_STAGES) + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory, completing `bytes` on the mbarrier.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (in 16-byte units), layout type 1 at bit 62.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// Keeps registers that an in-flight wgmma reads or writes live and in place
+// until this point (after the wait).
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
+}
+
+// D = A B over k16, f32 accumulators in the m64nN fragment: thread t of the
+// warpgroup holds, for each 8-column block j, (row 16 (t/32) + (t%32)/4,
+// columns 8j + 2 (t%4) + {0, 1}) in d[4j], d[4j+1] and the row 8 below in
+// d[4j+2], d[4j+3].  _ss: A and B from shared memory, both K-major;
+// _rs_tb: A from registers, B MN-major (transposed).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_tb_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_tb_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int D>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S, int H,
+                int Hkv, float scale) {
+  using L = WgmmaSmem<D>;
+  constexpr int PANELS = D / 64;
+  constexpr uint32_t TILE_BYTES = L::TILE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::BAR;
+  const auto k_full = [&](int s) { return bar_q + 8u * (1 + 4 * s); };
+  const auto v_full = [&](int s) { return bar_q + 8u * (2 + 4 * s); };
+  const auto k_empty = [&](int s) { return bar_q + 8u * (3 + 4 * s); };
+  const auto v_empty = [&](int s) { return bar_q + 8u * (4 + 4 * s); };
+
+  const int nq = (S + W_BQ - 1) / W_BQ;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x);
+  const int q0 = qt * W_BQ;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int nkt = qt + 1;  // key tiles 0 .. qt reach the causal frontier
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 256);  // every consumer thread arrives
+      mbar_init(v_empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      mbar_expect_tx(bar_q, TILE_BYTES);
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p) tma_load_4d(base + L::Q + p * W_PANEL, &tq, bar_q, 64 * p, h, q0, b);
+      for (int it = 0; it < nkt; ++it) {
+        const int s = it % W_STAGES, use = it / W_STAGES;
+        if (use > 0) mbar_wait(k_empty(s), (use - 1) & 1);
+        mbar_expect_tx(k_full(s), TILE_BYTES);
+#pragma unroll
+        for (int p = 0; p < PANELS; ++p)
+          tma_load_4d(base + L::K + s * L::TILE + p * W_PANEL, &tk, k_full(s), 64 * p, hk, it * W_BK, b);
+        if (use > 0) mbar_wait(v_empty(s), (use - 1) & 1);
+        mbar_expect_tx(v_full(s), TILE_BYTES);
+#pragma unroll
+        for (int p = 0; p < PANELS; ++p)
+          tma_load_4d(base + L::V + s * L::TILE + p * W_PANEL, &tv, v_full(s), 64 * p, hk, it * W_BK, b);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup c owns query rows q0 + 64 c .. q0 + 64 c + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const int row_lo = q0 + 64 * c + 16 * warp + g, row_hi = row_lo + 8;
+    const uint32_t qb = base + L::Q + c * 64 * 128;
+    float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
+    float oacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+
+    // S = Q K^T of key tile `it`: 64 rows x 128 keys, k16 steps over D (4
+    // per panel)
+    float sc[64];
+    const auto issue_qk = [&](int it) {
+      const int s = it % W_STAGES;
+      const uint32_t kb = base + L::K + s * L::TILE;
+      mbar_wait(k_full(s), (it / W_STAGES) & 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * W_PANEL + (kk % 4) * 32;
+        wgmma_ss_n128(sc, sw128_desc(qb + off, 16, 1024), sw128_desc(kb + off, 16, 1024), kk > 0);
+      }
+      wg_commit();
+    };
+    // O += P V of key tile `it`: the score fragment of keys 16 kk .. 16 kk + 15,
+    // rounded to bf16 pairs, is the register-A fragment of k16 step kk; V is
+    // an MN-major B, 8-key groups 1024 bytes apart (SBO), 64-column panels
+    // W_PANEL apart (LBO), a k16 step 16 rows of 128 bytes
+    uint32_t pa[8][4];
+    const auto issue_pv = [&](int it) {
+      const int s = it % W_STAGES;
+      const uint32_t vb = base + L::V + s * L::TILE;
+      mbar_wait(v_full(s), (it / W_STAGES) & 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t db = sw128_desc(vb + kk * 16 * 128, W_PANEL, 1024);
+        if constexpr (D == 128)
+          wgmma_rs_tb_n128(oacc, pa[kk], db);
+        else
+          wgmma_rs_tb_n64(oacc, pa[kk], db);
+      }
+      wg_commit();
+    };
+    // the online softmax of tile `it` in sc (masked on the diagonal tile
+    // only): updates m and l, leaves p in sc, returns the rescale factors
+    const auto softmax = [&](int it, float& al_lo, float& al_hi) {
+      const int k0 = it * W_BK;
+      const bool diag = it == nkt - 1;
+      float mx_lo = NEG_INF, mx_hi = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + 8 * j + 2 * t4 + e;
+          float lo = sc[4 * j + e] * scale, hi = sc[4 * j + 2 + e] * scale;
+          if (diag) {
+            lo = kpos <= row_lo ? lo : NEG_INF;
+            hi = kpos <= row_hi ? hi : NEG_INF;
+          }
+          sc[4 * j + e] = lo;
+          sc[4 * j + 2 + e] = hi;
+          mx_lo = fmaxf(mx_lo, lo);
+          mx_hi = fmaxf(mx_hi, hi);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      al_lo = __expf(m_lo - mn_lo);
+      al_hi = __expf(m_hi - mn_hi);
+      float rs_lo = 0.f, rs_hi = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sc[4 * j + e] = __expf(sc[4 * j + e] - mn_lo);
+          sc[4 * j + 2 + e] = __expf(sc[4 * j + 2 + e] - mn_hi);
+          rs_lo += sc[4 * j + e];
+          rs_hi += sc[4 * j + 2 + e];
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        rs_lo += __shfl_xor_sync(0xffffffffu, rs_lo, off);
+        rs_hi += __shfl_xor_sync(0xffffffffu, rs_hi, off);
+      }
+      l_lo = al_lo * l_lo + rs_lo;
+      l_hi = al_hi * l_hi + rs_hi;
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+    };
+    // rescale O by the tile's factors and round its p into the A fragments
+    const auto rescale_and_pack = [&](float al_lo, float al_hi) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        oacc[4 * j] *= al_lo;
+        oacc[4 * j + 1] *= al_lo;
+        oacc[4 * j + 2] *= al_hi;
+        oacc[4 * j + 3] *= al_hi;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+
+    mbar_wait(bar_q, 0);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    for (int it = 0; it < nkt; ++it) {
+      float al_lo, al_hi;
+      issue_qk(it);
+      wg_wait0();
+      hold(sc);
+      mbar_arrive(k_empty(it % W_STAGES));
+      softmax(it, al_lo, al_hi);
+      rescale_and_pack(al_lo, al_hi);
+      issue_pv(it);
+      wg_wait0();
+      hold(oacc);
+      hold(pa);
+      mbar_arrive(v_empty(it % W_STAGES));
+    }
+
+    const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (row_lo < S)
+        *reinterpret_cast<__nv_bfloat162*>(o + (static_cast<size_t>(b) * S + row_lo) * H * D +
+                                            static_cast<size_t>(h) * D + col) =
+            __floats2bfloat162_rn(oacc[4 * j] / d_lo, oacc[4 * j + 1] / d_lo);
+      if (row_hi < S)
+        *reinterpret_cast<__nv_bfloat162*>(o + (static_cast<size_t>(b) * S + row_hi) * H * D +
+                                            static_cast<size_t>(h) * D + col) =
+            __floats2bfloat162_rn(oacc[4 * j + 2] / d_hi, oacc[4 * j + 3] / d_hi);
+    }
+  }
+}
+
+// ------------------------------------------------------------ host helpers
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
+// library links nothing beyond the runtime.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// [B, S, heads, D] bf16 as a 4-D map (innermost first), boxes of 64 bf16
+// (128 bytes) x 1 head x 128 rows x 1 batch with the 128-byte swizzle; rows
+// past S read as zeros.
+int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(heads) * D * 2,
+                                 static_cast<cuuint64_t>(S) * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, 128, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+int launch_wgmma(int B, int S, int H, int Hkv, cudaStream_t stream, const void* q, const void* k,
+                 const void* v, void* o, float scale) {
+  CUtensorMap tq, tk, tv;
+  int err = encode_bshd(&tq, q, B, S, H, D);
+  if (err == 0) err = encode_bshd(&tk, k, B, S, Hkv, D);
+  if (err == 0) err = encode_bshd(&tv, v, B, S, Hkv, D);
+  if (err != 0) return err;
+  constexpr size_t smem = WgmmaSmem<D>::BYTES;
+  const cudaError_t e = cudaFuncSetAttribute(flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((S + W_BQ - 1) / W_BQ, B * H);
+  flash_wgmma<D><<<grid, W_THREADS, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, Hkv,
+                                                     scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DMAX>
 int launch_simple(dim3 grid, cudaStream_t stream, const void* q, const void* k,
                   const void* v, void* o, int S, int H, int Hkv, int D,
@@ -450,35 +878,37 @@ int dispatch_simple(dim3 grid, cudaStream_t s, const void* q, const void* k,
 
 }  // namespace
 
-// dtype: 1 = float32, 2 = bfloat16.  Returns a cudaError_t: 0 when the
-// launch was accepted.  Does not synchronise.
-extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int H, int Hkv, int D, float scale,
-                                      void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 ||
-      D > 256)
+// dtype: 1 = float32, 2 = bfloat16.  variant: 0 = flash_simple, 1 =
+// flash_mma, 2 = flash_wgmma, chosen by the caller before the launch; one
+// that does not take (dtype, D) is refused.  flash_wgmma also needs q, k, v
+// 16-byte aligned (TMA).  Returns a cudaError_t: 0 when the launch was
+// accepted.  Does not synchronise.
+extern "C" int flash_attention_launch(int dtype, int variant, const void* q, const void* k,
+                                      const void* v, void* o, int B, int S, int H, int Hkv, int D,
+                                      float scale, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<long long>(B) * H > 65535)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (static_cast<long long>(B) * H > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 1: {
-      const dim3 grid((S + S_BQ - 1) / S_BQ, B * H);
-      return dispatch_simple<float>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
-    }
-    case 2: {
-      if (D % 16 != 0) {
-        const dim3 grid((S + S_BQ - 1) / S_BQ, B * H);
-        return dispatch_simple<__nv_bfloat16>(grid, s, q, k, v, o, S, H, Hkv,
-                                              D, scale);
-      }
-      const dim3 grid((S + M_BQ - 1) / M_BQ, B * H);
-      if (D <= 64) return launch_mma<64>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
-      if (D <= 128) return launch_mma<128>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
-      return launch_mma<256>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
-    }
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 0) {
+    const dim3 grid((S + S_BQ - 1) / S_BQ, B * H);
+    if (dtype == 1) return dispatch_simple<float>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
+    if (dtype == 2) return dispatch_simple<__nv_bfloat16>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (dtype != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 1) {
+    if (D % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((S + M_BQ - 1) / M_BQ, B * H);
+    if (D <= 64) return launch_mma<64>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
+    if (D <= 128) return launch_mma<128>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
+    return launch_mma<256>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
+  }
+  if (variant == 2) {
+    for (const void* p : {q, k, v})
+      if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (D == 64) return launch_wgmma<64>(B, S, H, Hkv, s, q, k, v, o, scale);
+    if (D == 128) return launch_wgmma<128>(B, S, H, Hkv, s, q, k, v, o, scale);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,20 +14,33 @@ from pathlib import Path
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from ..build import load_library
 from .ref import flash_attention_ref
 
 SOURCE = Path(__file__).with_name("flash_attention.cu")
 _DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2}
 MAX_HEAD_DIM = 256
+_VARIANT_CODE = {"flash_simple": 0, "flash_mma": 1, "flash_wgmma": 2}
+
+
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that a launch of (dtype, head_dim) takes: ``flash_wgmma``
+    (TMA, warp-specialised wgmma) for bfloat16 with D in {64, 128};
+    ``flash_mma`` (mma.sync) for other bfloat16 with D % 16 == 0;
+    ``flash_simple`` (CUDA cores) for float32 and the remaining D."""
+    if dtype == torch.bfloat16 and head_dim in (64, 128):
+        return "flash_wgmma"
+    if dtype == torch.bfloat16 and head_dim % 16 == 0:
+        return "flash_mma"
+    return "flash_simple"
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     fn = lib.flash_attention_launch
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -68,15 +81,19 @@ def _launch(q, k, v) -> torch.Tensor:
     b, s, h, d = q.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
+    kind = variant(q.dtype, d)
+    if kind == "flash_wgmma" and any(a.data_ptr() % 16 for a in (q, k, v)):
+        raise ValueError("flash_wgmma reads q, k, v through TMA and needs them 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().flash_attention_launch(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[q.dtype], _VARIANT_CODE[kind], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, s, h, k.shape[2], d, 1.0 / d**0.5, stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err} (B={b}, S={s}, H={h}, Hkv={k.shape[2]}, D={d})")
-    LAUNCHES["flash_attention"] += 1
+        raise RuntimeError(f"flash_attention kernel {kind} launch failed: cudaError {err} "
+                           f"(B={b}, S={s}, H={h}, Hkv={k.shape[2]}, D={d})")
+    count_launch("flash_attention", kind)
     return out

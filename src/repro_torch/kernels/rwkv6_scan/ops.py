@@ -14,7 +14,7 @@ from pathlib import Path
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from ..build import load_library
 from .ref import rwkv6_scan_ref
 
@@ -27,41 +27,44 @@ HEAD_DIMS = (16, 32, 64)
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     fn = lib.rwkv6_scan_launch
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-def rwkv6_wkv(r, k, v, logw, u, *, state=None, use_kernel: bool = True):
+def rwkv6_wkv(r, k, v, logw, u, *, state=None, out_dtype=None, use_kernel: bool = True):
     """r,k,v,logw: [B,T,H,N]; u: [H,N]; state: [B,H,N,N] or None (zeros).
-    Returns (wkv output [B,T,H,N] in r's dtype, final state [B,H,N,N]
-    float32)."""
+    Returns (wkv output [B,T,H,N] in ``out_dtype``, by default r's dtype,
+    final state [B,H,N,N] float32)."""
     if r.dim() != 4 or not (r.shape == k.shape == v.shape == logw.shape):
         raise ValueError(f"r, k, v, logw must share one [B,T,H,N] shape, got {[tuple(a.shape) for a in (r, k, v, logw)]}")
     b, t, h, n = r.shape
     if tuple(u.shape) != (h, n) or (state is not None and tuple(state.shape) != (b, h, n, n)):
         raise ValueError(f"u must be [H,N] = {(h, n)} and state [B,H,N,N]; got {tuple(u.shape)}, "
                          f"{None if state is None else tuple(state.shape)}")
+    out_dtype = r.dtype if out_dtype is None else out_dtype
     if not use_kernel or r.device.type == "cpu":
-        return _plain(r, k, v, logw, u, state)
-    return _launch(r, k, v, logw, u, state)
+        return _plain(r, k, v, logw, u, state, out_dtype)
+    return _launch(r, k, v, logw, u, state, out_dtype)
 
 
-def _plain(r, k, v, logw, u, state):
+def _plain(r, k, v, logw, u, state, out_dtype):
     b, t, h, n = r.shape
     to_bh = lambda a: a.transpose(1, 2).reshape(b * h, t, n)
     s0 = None if state is None else state.reshape(b * h, n, n)
-    o, s = rwkv6_scan_ref(to_bh(r), to_bh(k), to_bh(v), to_bh(logw), u.repeat(b, 1), s0)
+    o, s = rwkv6_scan_ref(to_bh(r), to_bh(k), to_bh(v), to_bh(logw), u.repeat(b, 1), s0, out_dtype=out_dtype)
     return o.reshape(b, h, t, n).transpose(1, 2), s.reshape(b, h, n, n)
 
 
-def _launch(r, k, v, logw, u, state):
+def _launch(r, k, v, logw, u, state, out_dtype):
     dev = r.device
     tensors = (r, k, v, logw, u) + (() if state is None else (state,))
     if dev.type != "cuda" or any(a.device != dev for a in tensors):
         raise ValueError(f"rwkv6_scan kernel needs every operand on one CUDA device, got {[str(a.device) for a in tensors]}")
     if r.dtype not in _DTYPE_CODE or k.dtype != r.dtype or v.dtype != r.dtype:
         raise TypeError(f"rwkv6_scan kernel takes r, k, v in float32 or bfloat16, got {r.dtype}, {k.dtype}, {v.dtype}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"rwkv6_scan kernel writes float32 or bfloat16, not {out_dtype}")
     if any(a.dtype != torch.float32 for a in tensors[3:]):
         raise TypeError("rwkv6_scan kernel takes logw, u and state in float32")
     if not all(a.is_contiguous() for a in tensors):
@@ -69,14 +72,14 @@ def _launch(r, k, v, logw, u, state):
     b, t, h, n = r.shape
     if n not in HEAD_DIMS:
         raise ValueError(f"rwkv6_scan kernel takes head dims {HEAD_DIMS}, got {n}")
-    out = torch.empty_like(r)
+    out = torch.empty(r.shape, dtype=out_dtype, device=dev)
     s_fin = torch.empty((b, h, n, n), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().rwkv6_scan_launch(
-        _DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
+        _DTYPE_CODE[r.dtype], _DTYPE_CODE[out_dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
         None if state is None else state.data_ptr(), s_fin.data_ptr(), out.data_ptr(), b, t, h, n, stream,
     )
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: cudaError {err} (B={b}, T={t}, H={h}, N={n})")
-    LAUNCHES["rwkv6_scan"] += 1
+    count_launch("rwkv6_scan", "rwkv6_scan")
     return out, s_fin

@@ -4,15 +4,15 @@ from __future__ import annotations
 import torch
 
 
-def rwkv6_scan_ref(r, k, v, logw, u, state=None):
+def rwkv6_scan_ref(r, k, v, logw, u, state=None, *, out_dtype=None):
     """r,k,v,logw: [BH,T,N]; u: [BH,N]; state: [BH,N,N] or None (zeros).
-    Returns (out [BH,T,N] in r's dtype, final state [BH,N,N] float32), all
-    in float32 inside:
+    Returns (out [BH,T,N] in ``out_dtype``, by default r's dtype, final
+    state [BH,N,N] float32), all in float32 inside:
 
         out_t = r_t . (S_t + u * k_t^T v_t);  S_{t+1} = diag(w_t) S_t + k_t^T v_t
     """
     bh, t, n = r.shape
-    dtype = r.dtype
+    dtype = r.dtype if out_dtype is None else out_dtype
     r, k, v, u = r.float(), k.float(), v.float(), u.float()
     w = torch.exp(logw.float())
     s = torch.zeros((bh, n, n), dtype=torch.float32, device=r.device) if state is None else state.float()

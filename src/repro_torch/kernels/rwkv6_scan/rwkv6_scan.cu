@@ -7,7 +7,8 @@
 //   u        [H, N]         float32 bonus
 //   s0       [B, H, N, N]   float32 initial state, or null for zeros
 //   s_out    [B, H, N, N]   float32 final state, or null
-//   out      [B, T, H, N]   r's type
+//   out      [B, T, H, N]   float32 or bfloat16 (its own type, which the
+//                           model asks as float32 for its group norm)
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/rwkv6_scan/kernel.py
 // (rwkv6_scan, body _kernel), and computes what it computes, chunk by
@@ -55,12 +56,12 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (N * N + 7 * C * (N + 1) + C * (C + 1) + 2 * N);
 }
 
-template <typename T, int N>
+template <typename T, typename TO, int N>
 __global__ void __launch_bounds__(THREADS)
     rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
                       const T* __restrict__ v, const float* __restrict__ logw,
                       const float* __restrict__ u, const float* __restrict__ s0,
-                      float* __restrict__ s_out, T* __restrict__ out, int Tlen,
+                      float* __restrict__ s_out, TO* __restrict__ out, int Tlen,
                       int H) {
   constexpr int NP = N + 1;      // padded row stride of the [C][N] tiles
   constexpr int CP = C + 1;
@@ -181,50 +182,52 @@ __global__ void __launch_bounds__(THREADS)
       s_out[static_cast<size_t>(bh) * N * N + e] = S[e];
 }
 
-template <typename T, int N>
+template <typename T, typename TO, int N>
 int launch(int B, int Tlen, int H, cudaStream_t stream, const void* r,
            const void* k, const void* v, const void* logw, const void* u,
            const void* s0, void* s_out, void* out) {
   constexpr size_t smem = smem_bytes<N>();
   cudaError_t err = cudaFuncSetAttribute(
-      rwkv6_scan_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rwkv6_scan_kernel<T, TO, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  rwkv6_scan_kernel<T, N><<<B * H, THREADS, smem, stream>>>(
+  rwkv6_scan_kernel<T, TO, N><<<B * H, THREADS, smem, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(logw),
       static_cast<const float*>(u), static_cast<const float*>(s0),
-      static_cast<float*>(s_out), static_cast<T*>(out), Tlen, H);
+      static_cast<float*>(s_out), static_cast<TO*>(out), Tlen, H);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename TO>
 int dispatch(int N, int B, int Tlen, int H, cudaStream_t s, const void* r,
              const void* k, const void* v, const void* logw, const void* u,
              const void* s0, void* s_out, void* out) {
   switch (N) {
-    case 16: return launch<T, 16>(B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
-    case 32: return launch<T, 32>(B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
-    case 64: return launch<T, 64>(B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
+    case 16: return launch<T, TO, 16>(B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
+    case 32: return launch<T, TO, 32>(B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
+    case 64: return launch<T, TO, 64>(B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype: 1 = float32, 2 = bfloat16 (of r, k, v and out).  N in {16, 32, 64}.
-// Returns a cudaError_t: 0 when the launch was accepted.  Does not
-// synchronise.
-extern "C" int rwkv6_scan_launch(int dtype, const void* r, const void* k,
-                                 const void* v, const void* logw,
-                                 const void* u, const void* s0, void* s_out,
-                                 void* out, int B, int Tlen, int H, int N,
-                                 void* stream) {
+// dtype: 1 = float32, 2 = bfloat16, of r, k, v; out_dtype the same codes,
+// of out.  N in {16, 32, 64}.  Returns a cudaError_t: 0 when the launch was
+// accepted.  Does not synchronise.
+extern "C" int rwkv6_scan_launch(int dtype, int out_dtype, const void* r,
+                                 const void* k, const void* v,
+                                 const void* logw, const void* u,
+                                 const void* s0, void* s_out, void* out, int B,
+                                 int Tlen, int H, int N, void* stream) {
   if (B <= 0 || Tlen < 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 1: return dispatch<float>(N, B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
-    case 2: return dispatch<__nv_bfloat16>(N, B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
+  switch (dtype * 4 + out_dtype) {
+    case 1 * 4 + 1: return dispatch<float, float>(N, B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
+    case 1 * 4 + 2: return dispatch<float, __nv_bfloat16>(N, B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
+    case 2 * 4 + 1: return dispatch<__nv_bfloat16, float>(N, B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
+    case 2 * 4 + 2: return dispatch<__nv_bfloat16, __nv_bfloat16>(N, B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

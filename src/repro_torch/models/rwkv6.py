@@ -84,8 +84,9 @@ def time_mix(p, x, n_heads: int, head_dim: int, state=None, x_last=None, *, use_
     r, k, v, g, logw = _project(p, x, xprev)
     heads = lambda a: a.reshape(bsz, t, h, n)
     s0 = None if state is None else state.float().contiguous()
+    # the wkv output stays float32 up to the group norm, as in the reference
     wkv, s_fin = rwkv6_wkv(heads(r), heads(k), heads(v), heads(logw), p["u"].float(),
-                           state=s0, use_kernel=use_kernel)
+                           state=s0, out_dtype=torch.float32, use_kernel=use_kernel)
     out = _group_norm(wkv.reshape(bsz, t, d), p["gn_g"], p["gn_b"], h) * g
     out = out.to(x.dtype) @ p["w_o"]
     return out, (s_fin, x[:, -1])

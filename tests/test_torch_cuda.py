@@ -68,6 +68,63 @@ def test_kernel_skips_beyond_extents(card):
     assert (got - want).abs().max().item() <= 1e-12 * want.abs().max().item()
 
 
+# (P, BM, BK, BN, out_idx, num_out, extents): one per route and work split --
+# a long segment cut into items (second pass), empty blocks, per-pair
+# extents with a pair of no depth, odd strides (8-byte copies), the skinny
+# route with a cut segment and with 1 x 1 blocks
+ROUTE_CASES = {
+    "tiled_split": (6, 100, 700, 90, [0, 0, 0, 0, 0, 2], 3, None),
+    "tiled_odd": (4, 67, 133, 71, [1, 1, 2, 2], 3, None),
+    "tiled_extents": (5, 130, 300, 130, [0, 0, 0, 2, 2], 3,
+                      [[130, 300, 130], [17, 299, 130], [130, 0, 130], [64, 64, 65], [1, 1, 1]]),
+    "skinny_split": (40, 3000, 6, 5, [0] * 30 + [2] * 10, 3, "random"),
+    "skinny_1x1": (3, 5, 1, 1, [0, 2, 2], 4, None),
+}
+
+
+def _route_case(name, card, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    P, BM, BK, BN, oi, O, ext = ROUTE_CASES[name]
+    if ext == "random":
+        ext = np.stack([rng.integers(1, BM + 1, P), rng.integers(0, BK + 1, P), rng.integers(1, BN + 1, P)], 1)
+    ext = np.array(ext if ext is not None else [[BM, BK, BN]] * P, np.int32)
+    lhs = torch.zeros((P, BM, BK), dtype=torch.float64)
+    rhs = torch.zeros((P, BK, BN), dtype=torch.float64)
+    for p, (m, k, n) in enumerate(ext):
+        lhs[p, :m, :k] = torch.from_numpy(rng.standard_normal((m, k)))
+        rhs[p, :k, :n] = torch.from_numpy(rng.standard_normal((k, n)))
+    return lhs.to(card, dtype), rhs.to(card, dtype), np.array(oi), O, torch.from_numpy(ext).to(card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_kernel_routes_match_plain(card, dtype, case):
+    """Each route and work split against the plain version; the variant
+    counter names the kernel that ran (f64 tiles on the FP64 tensor cores)."""
+    from repro_torch.kernels.block_gemm.work import route, variant
+
+    lhs, rhs, oi, O, ext = _route_case(case, card, dtype)
+    kind = variant(route(lhs.shape[1], lhs.shape[2], rhs.shape[2]), dtype)
+    assert kind == ("skinny" if case.startswith("skinny") else "tiled_dmma" if dtype == torch.float64 else "tiled_fma")
+    before = kernels.VARIANT_LAUNCHES["block_gemm"][kind]
+    got = block_sparse_matmul(lhs, rhs, oi, O, extents=ext)
+    torch.cuda.synchronize()
+    assert kernels.VARIANT_LAUNCHES["block_gemm"][kind] == before + 1
+    want = block_sparse_matmul_ref(lhs, rhs, oi, O)
+    scale = want.double().abs().max().item()
+    assert (got.double() - want.double()).abs().max().item() <= TOL[dtype] * scale
+    for o in sorted(set(range(O)) - set(oi.tolist())):
+        assert not got[o].any()
+
+
+@pytest.mark.parametrize("case", ["tiled_split", "skinny_split"])
+def test_kernel_is_bitwise_reproducible(card, case):
+    """No atomics: two f64 launches on the same inputs are bitwise equal."""
+    lhs, rhs, oi, O, ext = _route_case(case, card, torch.float64, seed=1)
+    assert torch.equal(block_sparse_matmul(lhs, rhs, oi, O, extents=ext),
+                       block_sparse_matmul(lhs, rhs, oi, O, extents=ext))
+
+
 def test_wrapper_raises_instead_of_falling_back(card):
     """On the card the wrapper launches the kernel or raises."""
     lhs = torch.zeros((2, 3, 4), dtype=torch.float64, device=card)
@@ -78,6 +135,10 @@ def test_wrapper_raises_instead_of_falling_back(card):
         block_sparse_matmul(lhs.transpose(1, 2).contiguous().transpose(1, 2), rhs, np.zeros(2), 1)
     with pytest.raises(ValueError):
         block_sparse_matmul(lhs, rhs, np.array([1, 0]), 2)
+    from repro_torch.kernels.block_gemm.work import work_list
+
+    with pytest.raises(ValueError):  # a work list of another shape
+        block_sparse_matmul(lhs, rhs, np.zeros(2), 1, work=work_list([0, 2], None, 3, 4, 6))
 
 
 def test_slice_on_card_matches_ed(card):
@@ -139,6 +200,38 @@ def test_flash_kernel_matches_plain(card, dtype, b, s, h, hkv, d):
     assert _row_rel_err(got, flash_attention_bshd(q, k, v, use_kernel=False)) <= FLASH_TOL[dtype]
 
 
+@pytest.mark.parametrize("s", [1, 63, 128, 129, 1000, 2048, 8192])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+def test_flash_wgmma_matches_plain(card, s, d, n_rep):
+    """flash_wgmma (bf16, D in {64, 128}) per output row against the plain
+    version, B=3 (B=1 at S=8192), 8 query heads."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+
+    b, h = (1 if s == 8192 else 3), 8
+    g = torch.Generator(device=card).manual_seed(s * d + n_rep)
+    q = torch.randn(b, s, h, d, generator=g, device=card).bfloat16()
+    k = torch.randn(b, s, h // n_rep, d, generator=g, device=card).bfloat16()
+    v = torch.randn(b, s, h // n_rep, d, generator=g, device=card).bfloat16()
+    before = kernels.VARIANT_LAUNCHES["flash_attention"]["flash_wgmma"]
+    got = flash_attention_bshd(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.VARIANT_LAUNCHES["flash_attention"]["flash_wgmma"] == before + 1
+    assert _row_rel_err(got, flash_attention_bshd(q, k, v, use_kernel=False)) <= FLASH_TOL[torch.bfloat16]
+
+
+def test_flash_wgmma_is_strictly_causal(card):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+
+    g = torch.Generator(device=card).manual_seed(4)
+    q, k, v = (torch.randn(2, 384, 4, 128, generator=g, device=card).bfloat16() for _ in range(3))
+    o1 = flash_attention_bshd(q, k, v)
+    for cut in (200, 256):  # inside a key tile, and at a tile boundary
+        k2, v2 = k.clone(), v.clone()
+        k2[:, cut:], v2[:, cut:] = 99.0, -99.0
+        assert torch.equal(o1[:, :cut], flash_attention_bshd(q, k2, v2)[:, :cut])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_is_strictly_causal(card, dtype):
     from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
@@ -182,6 +275,24 @@ def test_scan_kernel_matches_plain(card, dtype, b, t, h, n, logw_max):
     assert _rel_err(s_fin, s_want) <= SCAN_TOL
 
 
+@pytest.mark.parametrize("t", [1, 45, 128])
+def test_scan_kernel_float32_output(card, t):
+    """out_dtype=float32 from bf16 inputs (what time_mix asks): the kernel
+    writes its f32 sums unrounded, equal to the plain version's to 2e-4."""
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
+
+    g = torch.Generator(device=card).manual_seed(t)
+    b, h, n = 2, 3, 64
+    r, k = ((0.5 * torch.randn(b, t, h, n, generator=g, device=card)).bfloat16() for _ in range(2))
+    v = torch.randn(b, t, h, n, generator=g, device=card).bfloat16()
+    logw = -torch.exp(torch.rand(b, t, h, n, generator=g, device=card) * 9.0 - 8.0)
+    u = 0.1 * torch.randn(h, n, generator=g, device=card)
+    got, _ = rwkv6_wkv(r, k, v, logw, u, out_dtype=torch.float32)
+    want, _ = rwkv6_wkv(r, k, v, logw, u, out_dtype=torch.float32, use_kernel=False)
+    assert got.dtype == want.dtype == torch.float32
+    assert _rel_err(got, want) <= SCAN_TOL
+
+
 def test_lm_wrappers_raise_instead_of_falling_back(card):
     from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
     from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
@@ -193,6 +304,9 @@ def test_lm_wrappers_raise_instead_of_falling_back(card):
         flash_attention_bshd(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
     with pytest.raises(ValueError):
         flash_attention_bshd(torch.zeros(1, 8, 2, 512, device=card), *(torch.zeros(1, 8, 2, 512, device=card),) * 2)
+    x = torch.zeros(1 * 8 * 2 * 64 + 1, device=card, dtype=torch.bfloat16)[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError):  # flash_wgmma reads through TMA: 16-byte aligned only
+        flash_attention_bshd(x, x, x)
     a = torch.zeros(1, 8, 2, 16, device=card)
     with pytest.raises(TypeError):
         rwkv6_wkv(a, a, a, a.bfloat16(), torch.zeros(2, 16, device=card))

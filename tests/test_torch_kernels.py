@@ -19,6 +19,7 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.dist.engine import ContractionEngine  # noqa: E402
 from repro_torch.kernels.block_gemm.ops import block_sparse_matmul, segments  # noqa: E402
 from repro_torch.kernels.block_gemm.ref import block_sparse_matmul_ref  # noqa: E402
+from repro_torch.kernels.block_gemm.work import WRITTEN, ZEROS, route, work_list  # noqa: E402
 
 from _torch_helpers import CASES, make_both  # noqa: E402
 
@@ -91,7 +92,8 @@ def test_wrapper_rejects_operands_that_do_not_chain():
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_csr_layout_feeds_the_kernel_what_it_assumes(case):
     """The csr plan's packed operands are what the CUDA kernel assumes: pairs
-    sorted by output block, ``seg`` their segments, and every packed entry
+    sorted by output block, the kernel's work list built for their
+    segments and shape, and every packed entry
     beyond a pair's ``extents`` zero (the kernel skips those entries); the
     packed product equals the JAX ``contract`` block for block to 1e-12."""
     a_specs, qa, b_specs, qb, axes = CASES[case]
@@ -99,10 +101,11 @@ def test_csr_layout_feeds_the_kernel_what_it_assumes(case):
     jb, tb = make_both(12, b_specs, qb)
     engine = ContractionEngine("csr")
     plan = engine.cache.get(ta, tb, axes)
-    lhs, rhs, oi, seg, ext = engine.pack_csr(plan, ta, tb)
+    lhs, rhs, oi, work, ext = engine.pack_csr(plan, ta, tb)
     L = plan.csr
     assert np.all(np.diff(oi) >= 0)
-    np.testing.assert_array_equal(seg.numpy(), segments(oi, len(L.out_keys)))
+    np.testing.assert_array_equal(L.seg, segments(oi, len(L.out_keys)))
+    assert work is L.work and work.shape == (len(oi), len(L.out_keys), L.bm, L.bk, L.bn)
     for p, (m, k, n) in enumerate(ext.tolist()):
         assert m <= L.bm and k <= L.bk and n <= L.bn
         assert not lhs[p, m:, :].any() and not lhs[p, :, k:].any()
@@ -116,3 +119,145 @@ def test_csr_layout_feeds_the_kernel_what_it_assumes(case):
             np.asarray(want.blocks[kc]), rtol=0, atol=1e-12,
         )
         assert not out[o, r:, :].any() and not out[o, :, c:].any()
+
+
+# ------------------------------------------------- the kernel's work list
+# (P, BM, BK, BN, out_idx, num_out, extents or None).  Long segments that the
+# planner cuts, empty output blocks, ragged and per-pair extents (a pair
+# with no depth), and the skinny route (BK, BN <= 16) with a cut segment.
+WORK_CASES = {
+    "long_segment": (5, 70, 300, 40, [0, 0, 0, 0, 2], 3, None),
+    "extents": (6, 130, 40, 70, [0, 0, 0, 1, 3, 3], 4,
+                [[130, 40, 70], [10, 40, 70], [130, 5, 70], [130, 40, 7], [1, 0, 1], [33, 17, 69]]),
+    "k_split_extents": (4, 64, 600, 64, [1, 1, 1, 1], 2, [[64, 600, 64], [20, 333, 64], [64, 1, 3], [64, 599, 64]]),
+    "skinny": (30, 600, 6, 5, [0] * 20 + [2] * 10, 3, "random"),
+    "skinny_1x1": (3, 5, 1, 1, [0, 2, 2], 4, None),
+}
+
+
+def _work_case(name, rng):
+    P, BM, BK, BN, oi, O, ext = WORK_CASES[name]
+    if ext == "random":
+        ext = np.stack([rng.integers(1, BM + 1, P), rng.integers(0, BK + 1, P), rng.integers(1, BN + 1, P)], 1)
+    ext = np.array(ext if ext is not None else [[BM, BK, BN]] * P, np.int64)
+    lhs = torch.zeros((P, BM, BK), dtype=torch.float64)
+    rhs = torch.zeros((P, BK, BN), dtype=torch.float64)
+    for p, (m, k, n) in enumerate(ext):
+        lhs[p, :m, :k] = torch.from_numpy(rng.standard_normal((m, k)))
+        rhs[p, :k, :n] = torch.from_numpy(rng.standard_normal((k, n)))
+    seg = segments(np.array(oi), O)
+    return lhs, rhs, np.array(oi), O, ext, work_list(seg, ext.astype(np.int32), BM, BK, BN)
+
+
+def _origin(tile, work, BM, BN):
+    mt_all, nt_all = -(-BM // work.tm), -(-BN // work.tn)
+    return tile // (mt_all * nt_all), (tile // nt_all) % mt_all, tile % nt_all
+
+
+def _walk(item, ext, work):
+    """The (pair, k-tile) units of one item, walked as the kernel walks:
+    pairs of no depth are skipped."""
+    tile, p, kt, units = (int(x) for x in item[:4])
+    out = []
+    for u in range(units):
+        if u > 0:
+            kt += 1
+            while kt >= -(-ext[p][1] // work.tk):
+                p, kt = p + 1, 0
+        out.append((tile, p, kt))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(WORK_CASES))
+def test_work_list_covers_every_unit_once(case):
+    """Every (pair, k-tile) of an output block is in exactly one work item
+    of each tile that the block's largest extents reach; every tile of the
+    padded output is written once: by its only item, by the second pass
+    over its items' slots, or as zeros where no pair reaches."""
+    lhs, rhs, oi, O, ext, work = _work_case(case, np.random.default_rng(5))
+    P, BM, BK, BN = *lhs.shape, rhs.shape[2]
+    assert work.route == route(BM, BK, BN) == ("skinny" if case.startswith("skinny") else "tiled")
+    seg = segments(oi, O)
+    mt_all, nt_all = -(-BM // work.tm), -(-BN // work.tn)
+    want = []
+    for o in range(O):
+        pairs = [p for p in range(seg[o], seg[o + 1]) if ext[p][1] > 0]
+        if not pairs:
+            continue
+        rows, cols = max(ext[p][0] for p in range(seg[o], seg[o + 1])), max(ext[p][2] for p in range(seg[o], seg[o + 1]))
+        for mt in range(-(-rows // work.tm)):
+            for nt in range(-(-cols // work.tn)):
+                tile = (o * mt_all + mt) * nt_all + nt
+                want += [(tile, p, kt) for p in pairs for kt in range(-(-ext[p][1] // work.tk))]
+    got = [u for item in work.items for u in _walk(item, ext, work)]
+    assert sorted(got) == sorted(want) and len(set(got)) == len(got)
+    dests = {}
+    for item in work.items:
+        dests.setdefault(int(item[0]), []).append(int(item[4]))
+    assert len(work.tile_fix) == O * mt_all * nt_all
+    slots = []
+    for tile, state in enumerate(work.tile_fix.tolist()):
+        if state == ZEROS:
+            assert tile not in dests
+        elif state == WRITTEN:
+            assert dests[tile] == [-1]
+        else:
+            first, count = (int(x) for x in work.fix[state])
+            assert count >= 2 and sorted(dests[tile]) == list(range(first, first + count))
+            slots += dests[tile]
+    assert sorted(slots) == list(range(work.n_slots))
+    if case in ("long_segment", "skinny"):
+        assert work.n_slots > 0  # the planner did cut a segment
+
+
+def _emulate(lhs, rhs, ext, work, O):
+    """The kernel's two passes in torch: each item sums its units' tile
+    products (operands zero beyond each pair's extents) into out or its
+    slot; the second pass sums slots in order, or writes zeros."""
+    P, BM, BK = lhs.shape
+    BN = rhs.shape[2]
+    tm, tn, tk = work.tm, work.tn, work.tk
+    out = torch.full((O, BM, BN), float("nan"), dtype=torch.float64)
+    ws = torch.full((work.n_slots, tm, tn), float("nan"), dtype=torch.float64)
+    for item in work.items:
+        dest = int(item[4])
+        acc = torch.zeros((tm, tn), dtype=torch.float64)
+        for tile, p, kt in _walk(item, ext, work):
+            o, mt, nt = _origin(tile, work, BM, BN)
+            m0, n0, k0 = mt * tm, nt * tn, kt * tk
+            pm, pk, pn = ext[p]
+            a = torch.zeros((tm, tk), dtype=torch.float64)
+            b = torch.zeros((tk, tn), dtype=torch.float64)
+            a[: max(min(pm, BM) - m0, 0), : max(min(pk, BK) - k0, 0)] = lhs[p, m0:pm, k0:pk][:tm, :tk]
+            b[: max(min(pk, BK) - k0, 0), : max(min(pn, BN) - n0, 0)] = rhs[p, k0:pk, n0:pn][:tk, :tn]
+            acc += a @ b
+        o, mt, nt = _origin(int(item[0]), work, BM, BN)
+        m0, n0 = mt * tm, nt * tn
+        if dest < 0:
+            out[o, m0:m0 + tm, n0:n0 + tn] = acc[: BM - m0, : BN - n0]
+        else:
+            ws[dest] = acc
+    for tile, state in enumerate(work.tile_fix.tolist()):
+        if state == WRITTEN:
+            continue
+        o, mt, nt = _origin(tile, work, BM, BN)
+        first, count = (0, 0) if state == ZEROS else (int(x) for x in work.fix[state])
+        acc = torch.zeros((tm, tn), dtype=torch.float64)
+        for i in range(count):
+            acc = acc + ws[first + i]
+        out[o, mt * tm:(mt + 1) * tm, nt * tn:(nt + 1) * tn] = acc[: BM - mt * tm, : BN - nt * tn]
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(WORK_CASES))
+def test_two_pass_emulation_matches_plain(case):
+    """The kernel's split and second pass, emulated in torch over the work
+    list, equal the plain version to 1e-13 of the largest |value| in f64,
+    with every element of the padded output written and empty blocks zero."""
+    lhs, rhs, oi, O, ext, work = _work_case(case, np.random.default_rng(6))
+    got = _emulate(lhs, rhs, ext, work, O)
+    want = block_sparse_matmul_ref(lhs, rhs, oi, O)
+    assert not got.isnan().any()
+    assert (got - want).abs().max().item() <= 1e-13 * max(want.abs().max().item(), 1.0)
+    for o in sorted(set(range(O)) - set(oi.tolist())):
+        assert not got[o].any()

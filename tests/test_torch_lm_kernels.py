@@ -17,6 +17,7 @@ from repro.kernels.rwkv6_scan.kernel import rwkv6_scan as j_scan
 from repro.kernels.rwkv6_scan.ops import rwkv6_wkv as j_wkv
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+from repro_torch.kernels.flash_attention.ops import variant as flash_variant
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
@@ -69,6 +70,21 @@ def test_flash_wrapper_matches_reference_wrapper(b, s, h, hkv, d):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=FLASH_TOL, atol=FLASH_TOL)
 
 
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, "flash_wgmma"),   # llama3_8b's heads
+    (torch.bfloat16, 64, "flash_wgmma"),
+    (torch.bfloat16, 96, "flash_mma"),
+    (torch.bfloat16, 16, "flash_mma"),
+    (torch.bfloat16, 256, "flash_mma"),
+    (torch.bfloat16, 48 + 1, "flash_simple"),
+    (torch.float32, 128, "flash_simple"),
+    (torch.float32, 64, "flash_simple"),
+])
+def test_flash_dispatch(dtype, d, want):
+    """The launcher picks its kernel from (dtype, D) before any launch."""
+    assert flash_variant(dtype, d) == want
+
+
 def test_flash_plain_is_strictly_causal():
     """Future keys and values must not change earlier outputs."""
     rng = np.random.default_rng(2)
@@ -112,6 +128,22 @@ def test_scan_wrapper_matches_reference_wrapper(t, logw_scale):
     got, s_fin = rwkv6_wkv(T(r), T(k), T(v), T(logw), T(u))
     assert got.shape == (b, t, h, n) and s_fin.shape == (b, h, n, n)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=SCAN_TOL, atol=SCAN_TOL)
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32, torch.bfloat16])
+def test_scan_out_dtype(out_dtype):
+    """``out_dtype`` sets the type of the wkv output (r's by default); the
+    sums are float32 whatever it is, so a float32 output of bf16 inputs is
+    the float32 scan of the same bf16 values, and the state is float32."""
+    rng = np.random.default_rng(11)
+    r, k, v, logw = (T(a) for a in scan_inputs(rng, (2, 21, 2), 16))
+    u = T(normal(rng, 2, 16, scale=0.1))
+    rb, kb, vb = (a.to(torch.bfloat16) for a in (r, k, v))
+    got, s = rwkv6_wkv(rb, kb, vb, logw, u, out_dtype=out_dtype)
+    want, s_want = rwkv6_wkv(rb.float(), kb.float(), vb.float(), logw, u)
+    assert got.dtype == (torch.bfloat16 if out_dtype is None else out_dtype) and s.dtype == torch.float32
+    torch.testing.assert_close(got, want.to(got.dtype), rtol=0, atol=0)
+    torch.testing.assert_close(s, s_want, rtol=0, atol=0)
 
 
 def test_scan_state_carries_across_calls():
