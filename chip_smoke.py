@@ -25,19 +25,23 @@ Phases (any failure exits non-zero):
      dims 16-128, f32 and bf16, strict causality; flash_wgmma over S in
      {1, 63, 128, 129, 1000, 2048, 8192}, D in {64, 128}, n_rep in {1, 4, 8},
      B in {1, 3}) and the RWKV6 scan (ragged T, head dims 16 and 64,
-     log-decay down to -exp(6), a carried state);
+     log-decay down to -exp(6), a carried state; log-decay -exp(6) for the
+     first 16 or 4 steps of each chunk, then -1e-3, at head dims 16-64; every
+     state split, counted by name);
   6. llama3_8b at its full published width and depth (random bf16 weights):
      prefill of B=4 x S=2048 through make_prefill_step (flash launches,
      time, peak memory; every launch flash_wgmma); full-width logits of the kernel path against the
      plain path in bf16 (reported) and with the weights in float32 (held,
      beside the bf16 model's own distance from the float32 one as the
      control); then launch/serve.main (4 requests, prompt 16, generate 32);
-  7. rwkv6_3b, the same;
+  7. rwkv6_3b, the same (every layer's scan by the split the wrapper picks);
   8. cached decode against prefill for both architectures at smoke size in
      f32;
   9. flash and scan timed at the prefill's shapes against their plain
-     versions (and scaled_dot_product_attention as a yardstick); flash's
-     tolerance checked against plain versions with a planted fault;
+     versions (and scaled_dot_product_attention as a yardstick); the scan at
+     B=1 as well, each with its bound from the split of its work between
+     tensor cores, CUDA cores and bytes; flash's tolerance checked against
+     plain versions with a planted fault;
   10. summary lines, then {"ok": true, "device": {...}} as the last line.
 Needs a CUDA card; exits non-zero without one, printing no result.
 """
@@ -379,6 +383,40 @@ def lm_kernel_cases(dev):
                 label = f"B={b} H={h} T={t} N={n}"
                 check("rwkv6_scan", dtype, label, got, want, SCAN_TOL[dtype])
                 check("rwkv6_scan", torch.float32, label + " state", s_got, s_want, SCAN_TOL[torch.float32])
+        # log-decay -exp(6) for the first few steps of every chunk, then
+        # -1e-3: chunk-wide cumulative sums would cancel here; float32 out
+        for n in (16, 32, 64):
+            for strong in (16, 4):
+                b, h, t = 2, 3, 100
+                r, kk = ((0.5 * torch.randn(b, t, h, n, generator=g, device=dev)).to(dtype) for _ in range(2))
+                vv = torch.randn(b, t, h, n, generator=g, device=dev).to(dtype)
+                logw = torch.full((b, t, h, n), -1e-3, device=dev)
+                for c0 in range(0, t, 32):
+                    logw[:, c0:c0 + strong] = -float(np.exp(6.0))
+                u = 0.1 * torch.randn(h, n, generator=g, device=dev)
+                s0 = 0.1 * torch.randn(b, h, n, n, generator=g, device=dev)
+                f32 = torch.float32
+                got, s_got = rwkv6_wkv(r, kk, vv, logw, u, state=s0, out_dtype=f32)
+                want, s_want = rwkv6_wkv(r, kk, vv, logw, u, state=s0, out_dtype=f32, use_kernel=False)
+                label = f"{str(dtype)[6:]} in, strong{strong} T={t} N={n}"
+                check("rwkv6_scan", f32, label, got, want, SCAN_TOL[f32])
+                check("rwkv6_scan", f32, label + " state", s_got, s_want, SCAN_TOL[f32])
+    # every state split forced at N=64, counted by its own name
+    from repro_torch.kernels.rwkv6_scan import ops as scan_ops
+    for split in (4, 2, 1):
+        b, h, t, n = 2, 5, 77, 64
+        r, kk = ((0.5 * torch.randn(b, t, h, n, generator=g, device=dev)).bfloat16() for _ in range(2))
+        vv = torch.randn(b, t, h, n, generator=g, device=dev).bfloat16()
+        logw = -torch.exp(torch.rand(b, t, h, n, generator=g, device=dev) * 14.0 - 8.0)
+        u = 0.1 * torch.randn(h, n, generator=g, device=dev)
+        s0 = 0.1 * torch.randn(b, h, n, n, generator=g, device=dev)
+        before = kernels.VARIANT_LAUNCHES["rwkv6_scan"][f"split{split}"]
+        got, s_got = scan_ops._launch(r, kk, vv, logw, u, s0, torch.float32, split)
+        if kernels.VARIANT_LAUNCHES["rwkv6_scan"][f"split{split}"] != before + 1:
+            fail(f"rwkv6_scan split{split} was not counted under its name")
+        want, s_want = rwkv6_wkv(r, kk, vv, logw, u, state=s0, out_dtype=torch.float32, use_kernel=False)
+        check("rwkv6_scan", torch.float32, f"split{split}", got, want, SCAN_TOL[torch.float32])
+        check("rwkv6_scan", torch.float32, f"split{split} state", s_got, s_want, SCAN_TOL[torch.float32])
     # flash_wgmma over its grid: 8 query heads, n_rep 1, 4, 8
     before = kernels.VARIANT_LAUNCHES["flash_attention"]["flash_wgmma"]
     n_cases = 0
@@ -442,6 +480,14 @@ def lm_full_width(arch: str, dev):
         fail(f"{arch} prefill launched {kernel} {rec['launches'][kernel]} times, not once per layer ({cfg.n_layers})")
     if kernel == "flash_attention" and rec["variant_launches"]["flash_wgmma"] != cfg.n_layers:
         fail(f"{arch} prefill ran flash attention as {rec['variant_launches']}, not flash_wgmma in every layer")
+    if kernel == "rwkv6_scan":
+        from repro_torch.kernels.rwkv6_scan.ops import variant
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rec["scan_variant"] = variant(cfg.rwkv_head_dim, LM_BATCH * cfg.n_heads, sms)
+        if rec["variant_launches"][rec["scan_variant"]] != cfg.n_layers:
+            fail(f"{arch} prefill ran the scan as {rec['variant_launches']}, not {rec['scan_variant']} in every layer")
+        log(f"  {arch} prefill: the scan ran {rec['variant_launches'][rec['scan_variant']]} of {cfg.n_layers} layers "
+            f"as {rec['scan_variant']}")
     if tuple(nxt.shape) != (LM_BATCH, cfg.vocab_size) or not bool(torch.isfinite(nxt).all()):
         fail(f"{arch} prefill: next-token logits {tuple(nxt.shape)}, finite={bool(torch.isfinite(nxt).all())}")
     del nxt
@@ -571,8 +617,32 @@ def lm_kernel_timings(dev):
                                    **timed(fns, dict(ms=20, plain_ms=3, library_ms=20)),
                                    **bound(ops, 989e12, nbytes))
     del q, k, v
-    # scan: rwkv6_3b's time-mix at B=4, T=2048: 40 heads of 64, r/k/v bf16
-    b, t, h, n = LM_BATCH, LM_SEQ, 40, 64
+    # scan: rwkv6_3b's time-mix at T=2048, 40 heads of 64, r/k/v bf16, at
+    # B=4 (the prefill's, in the kernels line) and B=1 (one request)
+    for b, key in ((LM_BATCH, "rwkv6_scan"), (1, "rwkv6_scan_b1")):
+        rows[key] = scan_timing(dev, g, b)
+    for name, row in rows.items():
+        log(f"  timing {name} " + json.dumps(row))
+        if not row["rel_err"] <= (FLASH_TOL[torch.bfloat16] if name == "flash_attention" else SCAN_TOL[torch.float32]):
+            fail(f"{name} at the prefill's shape: kernel vs plain rel err {row['rel_err']:.3e}")
+        if "state_rel_err" in row and not row["state_rel_err"] <= SCAN_TOL[torch.float32]:
+            fail(f"{name} at the prefill's shape: final state vs plain rel err {row['state_rel_err']:.3e}")
+    return rows
+
+
+def scan_timing(dev, g, b: int) -> dict:
+    """The scan at rwkv6_3b's time-mix shape (T=2048, H=40, N=64, bf16 in,
+    float32 out) against its plain version, with launches by variant.  Its
+    bound: bytes (inputs read once, outputs written once), or the operations
+    at the rates they run at, whichever is longer -- tensor-core products at
+    495 TFLOP/s TF32 over their split passes (3 with both operands float32,
+    2 against v, exact in TF32), the rest at 67 TFLOP/s on the CUDA cores.
+    The bound as counted before the tensor cores took the products, every
+    operation at 67 TFLOP/s, is logged beside it."""
+    from repro_torch import kernels
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
+
+    t, h, n, c = LM_SEQ, 40, 64, 32  # the kernel's chunk; T is a multiple of it here
     r, kk = ((0.5 * torch.randn(b, t, h, n, generator=g, device=dev)).to(torch.bfloat16) for _ in range(2))
     vv = torch.randn(b, t, h, n, generator=g, device=dev).to(torch.bfloat16)
     logw = -torch.exp(torch.randn(b, t, h, n, generator=g, device=dev).clamp(-8.0, 6.0))
@@ -580,24 +650,39 @@ def lm_kernel_timings(dev):
     f32 = torch.float32  # the wkv output type that time_mix asks for
     fns = dict(ms=lambda: rwkv6_wkv(r, kk, vv, logw, u, out_dtype=f32),
                plain_ms=lambda: rwkv6_wkv(r, kk, vv, logw, u, out_dtype=f32, use_kernel=False))
+    before = dict(kernels.VARIANT_LAUNCHES["rwkv6_scan"])
     (got, s_got), (want, s_want) = fns["ms"](), fns["plain_ms"]()
+    launched = {k: v - before[k] for k, v in kernels.VARIANT_LAUNCHES["rwkv6_scan"].items() if v != before[k]}
     err, rel = rel_err(got, want)
-    c = 32  # the kernel's chunk; T is a multiple of it here
-    per_chunk = (4 * c * n * n + n * n          # carry-in, state update
-                 + 3 * n * c * (c - 1) / 2       # pairwise r k exp(.) terms
-                 + 3 * n * c                     # bonus
-                 + 2 * n * c * (c + 1) / 2       # scores @ v
-                 + 4 * c * n)                    # cumulative decay, r and k rescaled
-    ops = per_chunk * (t // c) * b * h
+    chunks = (t // c) * b * h
+    # the count before the tensor cores took the products: every operation of
+    # the chunked algorithm at 67 TFLOP/s
+    per_chunk = (4 * c * n * n + n * n + 3 * n * c * (c - 1) / 2 + 3 * n * c + 2 * n * c * (c + 1) / 2 + 4 * c * n)
+    pairs = 4 * (8 * 7 // 2)  # pairs (t, i < t) inside the four diagonal sub-blocks of 8
+    tensor = {  # flops of each tensor-core product per chunk, and its split passes
+        "carry_in": (2 * c * n * n, 3), "state_increment": (2 * n * c * n, 2),
+        "intra": (2 * (c * (c + 1) // 2) * n, 2), "offdiag_scores": (2 * (6 * 8 * 8) * n, 3),
+    }
+    cuda_ops = (2 * c * n + 10 * n + pairs * n  # exponentials
+                + 2 * c * n + 4 * c * n          # sub-chunk scans; r, k and their decayed forms
+                + 3 * pairs * n + 3 * c * n      # diagonal pairs, bonus
+                + 2 * n * n + c * n)             # state update, out = intra + carry-in
+    t_tensor = chunks * sum(f * passes for f, passes in tensor.values()) / 495e12 * 1e3
+    t_cuda = chunks * cuda_ops / 67e12 * 1e3
     nbytes = 2.0 * 3 * b * t * h * n + 4.0 * 2 * b * t * h * n + 4.0 * h * n + 4.0 * b * h * n * n  # r,k,v; logw,out; u; state
-    rows["rwkv6_scan"] = dict(shape=dict(B=b, T=t, H=h, N=n, dtype="bfloat16", out_dtype="float32", chunk=c), max_abs_err=err, rel_err=rel,
-                              state_rel_err=rel_err(s_got, s_want)[1], ops=ops, bytes=nbytes, library_ms=None,
-                              **timed(fns, dict(ms=20, plain_ms=1)), **bound(ops, 67e12, nbytes))
-    for name, row in rows.items():
-        log(f"  timing {name} " + json.dumps(row))
-        if not row["rel_err"] <= (FLASH_TOL[torch.bfloat16] if name == "flash_attention" else SCAN_TOL[torch.float32]):
-            fail(f"{name} at the prefill's shape: kernel vs plain rel err {row['rel_err']:.3e}")
-    return rows
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(t_tensor, t_cuda, t_bytes)
+    row = dict(shape=dict(B=b, T=t, H=h, N=n, dtype="bfloat16", out_dtype="float32", chunk=c), max_abs_err=err,
+               rel_err=rel, state_rel_err=rel_err(s_got, s_want)[1], launches_by_variant=launched,
+               tensor_flops=chunks * sum(f for f, _ in tensor.values()), cuda_core_ops=chunks * cuda_ops, bytes=nbytes,
+               library_ms=None, **timed(fns, dict(ms=20, plain_ms=1)),
+               bound_ms=bound_ms, bound_by="bytes" if bound_ms == t_bytes else "operations",
+               bound_tensor_ms=t_tensor, bound_cuda_core_ms=t_cuda, bound_bytes_ms=t_bytes,
+               bound_f32_ms=max(per_chunk * chunks / 67e12 * 1e3, t_bytes))
+    log(f"  scan B={b}: {row['ms']:.4f} ms (plain {row['plain_ms']:.1f} ms), bound {bound_ms:.4f} ms by {row['bound_by']} "
+        f"(tensor cores {t_tensor:.4f}, CUDA cores {t_cuda:.4f}, bytes {t_bytes:.4f}; every operation at 67 TFLOP/s "
+        f"{row['bound_f32_ms']:.4f}), rel err {rel:.2e}, state {row['state_rel_err']:.2e}, launches {launched}")
+    return row
 
 
 def flash_controls(q, k, v, want, tile: int = 64) -> dict:

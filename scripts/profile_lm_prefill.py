@@ -31,7 +31,7 @@ def kind(name: str) -> str:
     low = name.lower()
     if "flash_wgmma" in low or "flash_mma" in low or "flash_simple" in low:
         return "flash_attention"
-    if "rwkv6_scan" in low:
+    if "rwkv6_scan" in low or "rwkv6_chunk" in low or "rwkv6_state" in low:
         return "rwkv6_scan"
     if "gemm" in low or "sm90_xmma" in low or "cutlass" in low or "nvjet" in low:
         return "gemm"

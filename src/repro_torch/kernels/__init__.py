@@ -13,7 +13,7 @@ LAUNCHES: Dict[str, int] = {"block_gemm": 0, "flash_attention": 0, "rwkv6_scan":
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     "block_gemm": {"tiled_dmma": 0, "tiled_fma": 0, "skinny": 0},
     "flash_attention": {"flash_wgmma": 0, "flash_mma": 0, "flash_simple": 0},
-    "rwkv6_scan": {"rwkv6_scan": 0},
+    "rwkv6_scan": {"split4": 0, "split2": 0, "split1": 0},
 }
 
 

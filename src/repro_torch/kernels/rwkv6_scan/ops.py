@@ -1,8 +1,9 @@
 """Wrapper of the chunked RWKV6 WKV scan (``rwkv6_scan.cu``) in the
 model's [B, T, H, N] layout.
 
-On a CUDA tensor it launches the hand-written kernel, or raises: it never
-falls back to the plain version.  The plain version (``ref.py``) runs only
+On a CUDA tensor it launches the hand-written kernel (a chunk kernel, then
+a state kernel, on the current stream; the float32 scratch between them is
+allocated here), or raises: it never falls back to the plain version.  The plain version (``ref.py``) runs only
 for tensors that lie on the CPU, or when the caller asks for it with
 ``use_kernel=False``.
 """
@@ -21,14 +22,31 @@ from .ref import rwkv6_scan_ref
 SOURCE = Path(__file__).with_name("rwkv6_scan.cu")
 _DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2}
 HEAD_DIMS = (16, 32, 64)
+CHUNK = 32  # tokens per chunk, as in the kernel
+
+
+def variant(head_dim: int, heads: int, sms: int) -> str:
+    """The state kernel that a launch over ``heads`` (batch x heads) of
+    ``head_dim`` takes on a card of ``sms`` SMs, named by how many CTAs
+    split each head's value columns: the most, up to head_dim / 16, that
+    keep the grid within about three CTAs per SM.  More CTAs per head fill
+    the card when heads are few; fewer read the chunk's shared r_dec fewer
+    times when they are many (rwkv6_3b: split4 at B=1, split2 at B=4;
+    PERF.md)."""
+    split = head_dim // 16
+    while split > 1 and heads * split > 3 * sms:
+        split //= 2
+    return f"split{split}"
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     fn = lib.rwkv6_scan_launch
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
     fn.restype = ctypes.c_int
+    lib.rwkv6_scan_work_floats.argtypes = [ctypes.c_int]
+    lib.rwkv6_scan_work_floats.restype = ctypes.c_int
     return lib
 
 
@@ -56,7 +74,9 @@ def _plain(r, k, v, logw, u, state, out_dtype):
     return o.reshape(b, h, t, n).transpose(1, 2), s.reshape(b, h, n, n)
 
 
-def _launch(r, k, v, logw, u, state, out_dtype):
+def _launch(r, k, v, logw, u, state, out_dtype, split=None):
+    """The kernel; ``split`` forces a variant (state CTAs per head) where
+    tests and chip_smoke.py hold every one against the plain version."""
     dev = r.device
     tensors = (r, k, v, logw, u) + (() if state is None else (state,))
     if dev.type != "cuda" or any(a.device != dev for a in tensors):
@@ -69,17 +89,25 @@ def _launch(r, k, v, logw, u, state, out_dtype):
         raise TypeError("rwkv6_scan kernel takes logw, u and state in float32")
     if not all(a.is_contiguous() for a in tensors):
         raise ValueError("rwkv6_scan kernel needs contiguous operands")
+    if any(a.data_ptr() % 16 for a in (r, k, v, logw)):
+        raise ValueError("rwkv6_scan kernel reads r, k, v, logw in 16-byte pieces: they must be 16-byte aligned")
     b, t, h, n = r.shape
     if n not in HEAD_DIMS:
         raise ValueError(f"rwkv6_scan kernel takes head dims {HEAD_DIMS}, got {n}")
     out = torch.empty(r.shape, dtype=out_dtype, device=dev)
     s_fin = torch.empty((b, h, n, n), dtype=torch.float32, device=dev)
+    if split is None:
+        split = int(variant(n, b * h, torch.cuda.get_device_properties(dev).multi_processor_count)[len("split"):])
+    lib = _library()
+    # per (batch, head, chunk): the chunk kernel's products, which the state kernel reads
+    work = torch.empty(b * h * (-(-t // CHUNK)) * lib.rwkv6_scan_work_floats(n), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().rwkv6_scan_launch(
+    err = lib.rwkv6_scan_launch(
         _DTYPE_CODE[r.dtype], _DTYPE_CODE[out_dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
         None if state is None else state.data_ptr(), s_fin.data_ptr(), out.data_ptr(), b, t, h, n, stream,
+        work.data_ptr(), split,
     )
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: cudaError {err} (B={b}, T={t}, H={h}, N={n})")
-    count_launch("rwkv6_scan", "rwkv6_scan")
+    count_launch("rwkv6_scan", f"split{split}")
     return out, s_fin

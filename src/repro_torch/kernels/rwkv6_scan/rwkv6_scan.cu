@@ -2,232 +2,650 @@
 //
 //   out_t = r_t . (S_t + u * k_t^T v_t),   S_{t+1} = diag(exp(logw_t)) S_t + k_t^T v_t
 //
-//   r, k, v  [B, T, H, N]   float32 or bfloat16, contiguous
-//   logw     [B, T, H, N]   float32, <= 0 (log of the per-channel decay)
+//   r, k, v  [B, T, H, N]   float32 or bfloat16, contiguous, 16-byte aligned
+//   logw     [B, T, H, N]   float32, <= 0 (log of the per-channel decay), the same
 //   u        [H, N]         float32 bonus
 //   s0       [B, H, N, N]   float32 initial state, or null for zeros
-//   s_out    [B, H, N, N]   float32 final state, or null
+//   s_out    [B, H, N, N]   float32 final state
 //   out      [B, T, H, N]   float32 or bfloat16 (its own type, which the
 //                           model asks as float32 for its group norm)
+//   work     [B, H, nc, 2 C N + N^2 + N] float32 scratch, nc = ceil(T / C)
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/rwkv6_scan/kernel.py
-// (rwkv6_scan, body _kernel), and computes what it computes, chunk by
-// chunk: the inclusive and exclusive cumulative log-decay L, Lprev; the
-// carry-in r exp(Lprev) S; the strictly lower intra-chunk term with the
-// pairwise exponents Lprev_t - L_i clipped to [-60, 0] before masking; the
-// bonus (r k u) v; and the state update
-// S' = diag(exp(L_C)) S + sum_i k_i exp(L_C - L_i) (x) v_i.
-// On the TPU the chunks were a sequential grid dimension with S in a VMEM
-// scratch.  Here one CTA per (batch, head) walks the chunks in a loop and
-// keeps S [N, N] in shared memory throughout (16 KiB at N = 64), so the
-// state never goes to HBM between chunks.  The kernel reads the model's
-// [B, T, H, N] layout in place (no transposes) and handles a T that is not
-// a multiple of the chunk by bounds checks, padding the last chunk with
-// logw = 0 and zero r, k, v in shared memory.  The chunk length is 32.
+// (rwkv6_scan, body _kernel) and computes what it computes, chunk by chunk
+// (C = 32 tokens): the carry-in r_t exp(Lprev_t) S, the strictly lower
+// intra-chunk term sum_{i<t} (sum_n r_t k_i exp(sum_{i<j<t} logw_j)) v_i,
+// the bonus (r_t k_t u) v_t and the state update
+// S' = diag(exp(L_C)) S + sum_i k_i exp(sum_{j>i} logw_j) (x) v_i.
 //
-// Bound: per chunk of C tokens a head does ~4 C N^2 (carry-in, state) +
-// ~2.5 C^2 N (pairwise term) float32 operations and C^2 N / 2 exponentials,
-// on 4 C N inputs, so at N = 64 it is bound by float32 arithmetic on the
-// CUDA cores rather than by HBM.  With one CTA per (batch, head) the grid
-// holds only B * H CTAs (160 at B = 4 for rwkv6_3b; 40 at B = 1, which
-// under-fills the 132 SMs); splitting a head's work across CTAs is later
-// work.
+// Design: two kernels on one stream.
+// * rwkv6_chunk_kernel, one CTA per (batch, head, chunk), all in parallel:
+//   everything of a chunk that does not depend on the state.  The decay
+//   sums, the [C, C] scores with the bonus on their diagonal, the intra
+//   output scores v, the chunk's state increment dS = k_dec^T v, the decayed
+//   r_dec of the carry-in and exp(L_C) go to `work`.  The exponentials and
+//   the scores are formed once per (head, chunk), for all value columns.
+// * rwkv6_state_kernel walks the chunks of a head: out_c = intra_c +
+//   r_dec,c S_c and S_{c+1} = diag(exp(L_C)) S_c + dS_c.  The head's value
+//   columns are split over 1, 2 or 4 CTAs (the variant, picked by the
+//   wrapper from the grid: more CTAs fill the card when heads are few, fewer
+//   read each chunk's r_dec fewer times when they are many), each keeping
+//   its columns of S in shared memory, the chunks' records in a cp.async
+//   ring two deep.  The only chain from chunk to chunk is the element-wise
+//   update, which two warps run while four do the carry-in products.
+//   (The first redesign split each head over a cluster of N / 16 CTAs that
+//   did the decay work in turn with the state, exchanging quarters through
+//   distributed shared memory: its per-chunk chain, ~5 us, kept it at
+//   0.98 ms for rwkv6_3b's B = 4 prefill shape; PERF.md has both.)
+// * Exponents from direct sums.  The TPU kernel (and the first CUDA version
+//   of this one) took every exponent as a difference of chunk-wide cumulative
+//   sums, L_t - L_i.  The model's log-decay reaches -e^6 per step, so |L|
+//   reaches ~1.3e4 within a chunk and such a difference carries an absolute
+//   error of an ulp of |L| (~1e-3) even when it should be small.  Here
+//   every exponent is a sum of logw over exactly its own range, all terms of
+//   one sign, so it keeps the precision of its own size.  Lane = token:
+//   warp-shuffle scans within sub-chunks of 8 give each token's exclusive
+//   prefix and suffix there; the whole sub-chunks' sums T0..T3 are summed
+//   directly in the runs each factor needs.  So
+//     exp(prefix before t)  = exp(prefix within t's sub-chunk) * exp(whole sub-chunks before),
+//     exp(suffix after i)   = exp(suffix within i's sub-chunk) * exp(whole sub-chunks after),
+//   pairs (t, i) in one sub-chunk take exp of a running sum over (i, t), and
+//   pairs in sub-chunks b < a factor as exp(prefix of a before t) *
+//   exp(whole sub-chunks between) * exp(suffix of b after i).  Each factor
+//   is <= 1, so nothing overflows.  That takes 2 C N + 28 N C / 8 + 10 N
+//   exponentials per chunk instead of C^2 N / 2.
+// * No clip.  The TPU kernel clips each pairwise exponent to [-60, 0]
+//   before exp; the upper end never binds for i < t and the lower end
+//   lifts weights below e^-60 ~ 8.8e-27 to e^-60.  This kernel keeps the
+//   true weight (a product of exponentials of sums <= 0, flushed to zero
+//   below float32's normal range), as the stepwise recurrence does; the two
+//   differ by at most 8.8e-27 |r_t k_i| per term
+//   (tests/test_torch_scan_design.py).
+// * Tensor cores at float32 accuracy.  The intra product scores[C x C]
+//   v[C x N], the increment k_dec^T[N x C] v[C x N] and the carry-in
+//   r_dec[C x N] S[N x N/split] run on mma.sync.m16n8k8 TF32 with split operands
+//   (3xTF32: a = a_hi + a_lo, summing lo*hi + hi*lo + hi*hi into float32);
+//   v in bf16 is exact in TF32, so its products take two passes.  The six
+//   off-diagonal score blocks (8 x 8 over N channels) run there too, packed
+//   into four m16n8k8 tiles of three passes.
+// * Deterministic: no atomics; every sum has a fixed order.
+//
+// Bound: per chunk and head ~4 C N^2 + C^2 N tensor-core flops (3 or 2
+// TF32 passes each), ~0.1 M CUDA-core operations and 4 C N input elements:
+// at rwkv6_3b's shape the tensor-core and CUDA-core work each take less
+// time than reading the inputs and writing the output, so the bound is the
+// bytes (chip_smoke.py phase 9 states both).  `work` adds 2 C N + N^2 + N
+// floats per chunk, written once and read once (r_dec once per state CTA).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int C = 32;          // chunk length
-constexpr int THREADS = 256;
+constexpr int C = 32;        // chunk length: one token per lane
+constexpr int SUB = 8;       // sub-chunk of the score factoring
+constexpr int WARPS = 8;     // chunk kernel
+constexpr int THREADS = 32 * WARPS;
+constexpr int STATE_THREADS = 192;  // state kernel: 4 warps on the output (2 row tiles x 2 column halves), 2 on S
+constexpr int STAGES = 2;           // state kernel's cp.async ring: chunk c + 1 arrives while chunk c computes
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// exp(x) for x <= 0 as one ex2.approx (relative error ~2^-22; results
+// below float32's normal range flush to zero, as a weight that small is)
+__device__ __forceinline__ float exp_neg(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// The TF32 part of x rounded to nearest: cvt.rna.tf32.f32 without the
+// inf/nan guard that the compiler emits for it (the operands are finite)
+__device__ __forceinline__ uint32_t tf32_hi(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An A fragment split for TF32 passes: hi rounded to TF32, lo the rest (the
+// tensor core reads its top 19 bits: 2^-11 of lo, 2^-22 of a)
+struct SplitA {
+  uint32_t hi[4], lo[4];
+};
+__device__ __forceinline__ SplitA split_a(const float* a) {
+  SplitA s;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    s.hi[i] = tf32_hi(a[i]);
+    s.lo[i] = __float_as_uint(a[i] - __uint_as_float(s.hi[i]));
+  }
+  return s;
+}
+
+// d += a b for one (16 x 8) tile at float32 accuracy: b split like a unless
+// B_EXACT (b already a TF32 value, as bf16 is); the lo passes first.
+template <bool B_EXACT>
+__device__ __forceinline__ void mma_split(float* d, const SplitA& a, const float* b) {
+  uint32_t bh[2], bl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    bh[i] = B_EXACT ? __float_as_uint(b[i]) : tf32_hi(b[i]);
+    bl[i] = B_EXACT ? 0u : __float_as_uint(b[i] - __uint_as_float(bh[i]));
+  }
+  mma_tf32(d, a.lo, bh);
+  if (!B_EXACT) mma_tf32(d, a.hi, bl);
+  mma_tf32(d, a.hi, bh);
+}
+
+// A row of NT (16 x 8) tiles: acc[j] += A[rows r0, r0 + 8][0:K] B[0:K][m0 + 8 j],
+// A at A[row * lda + k], B at B[k * ldb + col]; (r0, m0) = (first row, first
+// column) + g, the lane's fragment row and column.  Each A fragment is split
+// once for the whole row.
+template <bool B_EXACT, int NT, int K>
+__device__ __forceinline__ void mma_row(float (*acc)[4], const float* A, int lda, int r0, const float* B, int ldb,
+                                        int m0, int tg) {
+#pragma unroll
+  for (int ks = 0; ks < K / 8; ++ks) {
+    const int kc = 8 * ks + tg;
+    const float a[4] = {A[r0 * lda + kc], A[(r0 + 8) * lda + kc], A[r0 * lda + kc + 4], A[(r0 + 8) * lda + kc + 4]};
+    const SplitA sa = split_a(a);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float b[2] = {B[kc * ldb + m0 + 8 * j], B[(kc + 4) * ldb + m0 + 8 * j]};
+      mma_split<B_EXACT>(acc[j], sa, b);
+    }
+  }
+}
+
+// Offsets (floats) of one chunk's record in `work`
 template <int N>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (N * N + 7 * C * (N + 1) + C * (C + 1) + 2 * N);
+struct Work {
+  static constexpr int rd = 0;              // [C][N]  r_t exp(prefix before t)
+  static constexpr int ds = rd + C * N;     // [N][N]  k_dec^T v
+  static constexpr int oi = ds + N * N;     // [C][N]  intra term and bonus
+  static constexpr int wc = oi + C * N;     // [N]     exp(L_C)
+  static constexpr int size = wc + N;
+};
+
+// ------------------------------------------------------------ chunk kernel
+// Shared memory (floats).  Channel-major [N][CP] arrays are read and written
+// with lane = token: conflict-free at a row stride of C + 1.
+template <int N>
+struct ChunkSmem {
+  static constexpr int CP = C + 1;
+  static constexpr int AS = C + 8;   // decayed r, k [N][AS]: fragments of the off-diagonal score blocks
+  static constexpr int KT = C + 4;   // k_dec [N][KT]: A fragments of k_dec^T (rows n)
+  static constexpr int VS = N + 8;   // v [C][VS]: B fragments (k = token)
+  static constexpr int SC = C + 4;   // scores [C][SC]: A fragments
+  // inputs, read into registers before phase 1 writes its outputs over them
+  static constexpr int lwT = 0, rT = lwT + N * CP, kT = rT + N * CP;
+  static constexpr int rdT = 0, arT = rdT + N * CP, bkT = arT + N * AS;  // phase 1 outputs, same space
+  static constexpr int kdT = bkT + N * AS;
+  static constexpr int vs = kdT + N * KT;
+  static constexpr int dm = vs + C * VS;     // [3][N]: whole sub-chunks between (0,2), (1,3), (0,3)
+  static constexpr int wc = dm + 3 * N;      // [N]
+  static constexpr int us = wc + N;          // [N]
+  static constexpr int dgp = us + N;         // [WARPS][SUB][C] diagonal score partials
+  static constexpr int sc = dgp + WARPS * SUB * C;  // [C][SC]
+  static constexpr int total = sc + C * SC;
+  static constexpr size_t bytes = sizeof(float) * total;
+};
+
+template <typename T, int N>
+__global__ void __launch_bounds__(THREADS, 2)
+    rwkv6_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                       const float* __restrict__ logw, const float* __restrict__ u,
+                       float* __restrict__ work, int Tlen, int H) {
+  using L = ChunkSmem<N>;
+  using W = Work<N>;
+  constexpr bool V_EXACT = sizeof(T) == 2;  // bf16 values are TF32 values
+  constexpr int CW = N / WARPS;             // channels per warp in phase 1
+  extern __shared__ __align__(16) float sm[];
+  const int c = blockIdx.x, nc = gridDim.x, bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;  // mma fragment coordinates
+  const int t0 = c * C, cl = min(C, Tlen - t0);
+  const size_t row = static_cast<size_t>(H) * N;
+  const size_t base = (static_cast<size_t>(b) * Tlen + t0) * row + static_cast<size_t>(h) * N;
+  float* wk = work + (static_cast<size_t>(bh) * nc + c) * W::size;
+
+  // ---- loads: r, k, logw channel-major, v row-major; rows past T are
+  // zeros.  16-byte pieces, all in flight before the first is used.
+  {
+    constexpr int VE = 16 / sizeof(T), PV = C * N / VE, PL = C * N / 4;
+    constexpr int NV = (PV + THREADS - 1) / THREADS, NL = (PL + THREADS - 1) / THREADS;
+    uint4 rq[NV], kq[NV], vq[NV];
+    float4 lq[NL];
+#pragma unroll
+    for (int w = 0; w < NV; ++w) {
+      const int e = (tid + w * THREADS) * VE, t = e / N;
+      rq[w] = kq[w] = vq[w] = make_uint4(0u, 0u, 0u, 0u);
+      if (e < C * N && t < cl) {
+        const size_t off = base + static_cast<size_t>(t) * row + e % N;
+        rq[w] = *reinterpret_cast<const uint4*>(r + off);
+        kq[w] = *reinterpret_cast<const uint4*>(k + off);
+        vq[w] = *reinterpret_cast<const uint4*>(v + off);
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < NL; ++w) {
+      const int e = (tid + w * THREADS) * 4, t = e / N;
+      lq[w] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < C * N && t < cl) lq[w] = *reinterpret_cast<const float4*>(logw + base + static_cast<size_t>(t) * row + e % N);
+    }
+#pragma unroll
+    for (int w = 0; w < NV; ++w) {
+      const int e = (tid + w * THREADS) * VE, t = e / N, n0 = e % N;
+      if (e < C * N) {
+        const T* pr = reinterpret_cast<const T*>(&rq[w]);
+        const T* pk = reinterpret_cast<const T*>(&kq[w]);
+        const T* pv = reinterpret_cast<const T*>(&vq[w]);
+#pragma unroll
+        for (int i = 0; i < VE; ++i) {
+          sm[L::rT + (n0 + i) * L::CP + t] = to_f32(pr[i]);
+          sm[L::kT + (n0 + i) * L::CP + t] = to_f32(pk[i]);
+          sm[L::vs + t * L::VS + n0 + i] = to_f32(pv[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < NL; ++w) {
+      const int e = (tid + w * THREADS) * 4, t = e / N, n0 = e % N;
+      if (e < C * N) {
+        sm[L::lwT + n0 * L::CP + t] = lq[w].x;
+        sm[L::lwT + (n0 + 1) * L::CP + t] = lq[w].y;
+        sm[L::lwT + (n0 + 2) * L::CP + t] = lq[w].z;
+        sm[L::lwT + (n0 + 3) * L::CP + t] = lq[w].w;
+      }
+    }
+  }
+  if (tid < N) sm[L::us + tid] = u[h * N + tid];
+  __syncthreads();
+
+  // ---- phase 1: decay sums; warp w takes channels w, w + 8, ...; lane = token
+  {
+    const int sl = lane & (SUB - 1), sa = lane / SUB;
+    // the runs of whole sub-chunks T0..T3 that the factors need, one per
+    // lane 0..9 as a 4-bit mask of the T_k it sums: before sub-chunk 1, 2,
+    // 3; after 0, 1, 2; the whole chunk (exp(L_C)); between 0 and 2, 1 and
+    // 3, 0 and 3
+    const unsigned runs = lane < 10 ? static_cast<unsigned>(0x642F8CE731ull >> (4 * lane)) & 15u : 0u;
+    float x[CW], rv[CW], kv[CW];
+#pragma unroll
+    for (int q = 0; q < CW; ++q) {
+      const int n = warp + WARPS * q;
+      x[q] = sm[L::lwT + n * L::CP + lane];
+      rv[q] = sm[L::rT + n * L::CP + lane];
+      kv[q] = sm[L::kT + n * L::CP + lane];
+    }
+    __syncthreads();  // the inputs are in registers: phase 1 writes over them
+    float ps[SUB];    // this lane's score partials, pairs (t, t - d), over the warp's channels
+#pragma unroll
+    for (int d = 0; d < SUB; ++d) ps[d] = 0.f;
+#pragma unroll
+    for (int q = 0; q < CW; ++q) {
+      const int n = warp + WARPS * q;
+      float sinc = x[q], ssuf = x[q];  // inclusive sums within the lane's sub-chunk
+#pragma unroll
+      for (int d = 1; d < SUB; d <<= 1) {
+        const float y = __shfl_up_sync(FULL, sinc, d, SUB);
+        const float z = __shfl_down_sync(FULL, ssuf, d, SUB);
+        if (sl >= d) sinc += y;
+        if (sl + d < SUB) ssuf += z;
+      }
+      // exclusive sums: the neighbour's inclusive sum, never a difference
+      float sP = __shfl_up_sync(FULL, sinc, 1, SUB);
+      float sQ = __shfl_down_sync(FULL, ssuf, 1, SUB);
+      if (sl == 0) sP = 0.f;
+      if (sl == SUB - 1) sQ = 0.f;
+      const float T0 = __shfl_sync(FULL, sinc, SUB - 1), T1 = __shfl_sync(FULL, sinc, 2 * SUB - 1);
+      const float T2 = __shfl_sync(FULL, sinc, 3 * SUB - 1), T3 = __shfl_sync(FULL, sinc, 4 * SUB - 1);
+      const float run = (((runs & 1u ? T0 : 0.f) + (runs & 2u ? T1 : 0.f)) + (runs & 4u ? T2 : 0.f)) +
+                        (runs & 8u ? T3 : 0.f);
+      const float fe = exp_neg(run);
+      const float before = __shfl_sync(FULL, fe, sa == 0 ? 0 : sa - 1);
+      const float after = __shfl_sync(FULL, fe, sa == 3 ? 0 : sa + 3);
+      const float ar = rv[q] * exp_neg(sP), bk = kv[q] * exp_neg(sQ);
+      sm[L::arT + n * L::AS + lane] = ar;
+      sm[L::bkT + n * L::AS + lane] = bk;
+      sm[L::rdT + n * L::CP + lane] = sa == 0 ? ar : ar * before;
+      sm[L::kdT + n * L::KT + lane] = sa == 3 ? bk : bk * after;
+      if (lane == 6) sm[L::wc + n] = fe;
+      if (lane >= 7 && lane < 10) sm[L::dm + (lane - 7) * N + n] = fe;
+      ps[0] += rv[q] * kv[q] * sm[L::us + n];  // the bonus
+    }
+    // diagonal sub-blocks: pair (t, t - d), exponent the running sum of
+    // logw over (t - d, t)
+    float acc[CW];
+#pragma unroll
+    for (int q = 0; q < CW; ++q) acc[q] = 0.f;
+#pragma unroll
+    for (int d = 1; d < SUB; ++d) {
+#pragma unroll
+      for (int q = 0; q < CW; ++q) {
+        const float ki = __shfl_up_sync(FULL, kv[q], d, SUB);
+        const float xi = __shfl_up_sync(FULL, x[q], d, SUB);
+        if (sl >= d) ps[d] += rv[q] * ki * exp_neg(acc[q]);
+        acc[q] += xi;
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < SUB; ++d) sm[L::dgp + (warp * SUB + d) * C + lane] = ps[d];
+  }
+  __syncthreads();
+
+  // ---- phase 2: the scores [C][C].  Warps 0-3: the six blocks below the
+  // diagonal sub-blocks as four (16 x 8) tensor-core tiles over the N
+  // channels, A = decayed r times the factor of the whole sub-chunks
+  // between, B = decayed k: column block 0 with rows 8-23 (blocks (1,0),
+  // (2,0)) and rows 24-31 (block (3,0), its rows taken twice), column block
+  // 1 with rows 16-31 ((2,1), (3,1)), column block 2 with rows 24-31.
+  // Warps 4-7: the diagonal sub-blocks from the warps' partials and the
+  // zeros above them.
+  if (warp < 4) {
+    const int cb = warp < 2 ? 0 : warp - 1;                   // column sub-chunk b
+    const int lo_row = warp == 0 ? 8 : warp == 2 ? 16 : 24;  // first row of the tile
+    const int hi_row = warp == 0 ? 16 : warp == 2 ? 24 : 24;  // first row of its second half
+    const int ra = lo_row + g, rb = hi_row + g;               // the lane's two fragment rows
+    // factor of the whole sub-chunks between row sub-chunk a and cb: none
+    // next door, Dm[0] for (2,0), Dm[1] for (3,1), Dm[2] for (3,0)
+    auto factor = [&](int t) -> int {
+      const int d = t / SUB - cb;
+      return d == 1 ? -1 : d == 2 ? cb : 2;
+    };
+    const int fa = factor(ra), fb = factor(rb);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < N / 8; ++ks) {
+      const int kc = 8 * ks + tg;
+      const float* dm = sm + L::dm;
+      const float a[4] = {
+          sm[L::arT + kc * L::AS + ra] * (fa < 0 ? 1.f : dm[fa * N + kc]),
+          sm[L::arT + kc * L::AS + rb] * (fb < 0 ? 1.f : dm[fb * N + kc]),
+          sm[L::arT + (kc + 4) * L::AS + ra] * (fa < 0 ? 1.f : dm[fa * N + kc + 4]),
+          sm[L::arT + (kc + 4) * L::AS + rb] * (fb < 0 ? 1.f : dm[fb * N + kc + 4])};
+      const float bq[2] = {sm[L::bkT + kc * L::AS + SUB * cb + g], sm[L::bkT + (kc + 4) * L::AS + SUB * cb + g]};
+      mma_split<false>(acc, split_a(a), bq);
+    }
+    const int col = SUB * cb + 2 * tg;
+    sm[L::sc + ra * L::SC + col] = acc[0];
+    sm[L::sc + ra * L::SC + col + 1] = acc[1];
+    if (warp != 1 && warp != 3) {  // the tiles whose second half is rows of their own
+      sm[L::sc + rb * L::SC + col] = acc[2];
+      sm[L::sc + rb * L::SC + col + 1] = acc[3];
+    }
+  } else {
+    for (int e = tid - 128; e < 4 * SUB * SUB + 6 * SUB * SUB; e += 128) {
+      if (e < 4 * SUB * SUB) {  // diagonal sub-block sa, pair (rr, cc)
+        const int sa = e >> 6, rr = (e >> 3) & 7, cc = e & 7, t = SUB * sa + rr;
+        float s = 0.f;
+        if (cc <= rr) {
+#pragma unroll
+          for (int w = 0; w < WARPS; ++w) s += sm[L::dgp + (w * SUB + rr - cc) * C + t];
+        }
+        sm[L::sc + t * L::SC + SUB * sa + cc] = s;
+      } else {  // above the diagonal sub-blocks: row sub-chunk b < column sub-chunk a
+        const int f = e - 4 * SUB * SUB, pb = f >> 6, sa = pb < 1 ? 1 : pb < 3 ? 2 : 3, sb = pb - (sa * (sa - 1)) / 2;
+        sm[L::sc + (SUB * sb + ((f >> 3) & 7)) * L::SC + SUB * sa + (f & 7)] = 0.f;
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- phase 3: tensor-core products, fragments straight to `work`.
+  // Warp w takes row of tiles w of dS = k_dec^T v [N x N] (m-tile w % (N/16),
+  // N/16 of the N/8 column tiles) and of intra = scores v [C x N] (m-tile
+  // w % 2, NI column tiles), each A fragment split once for its row.
+  {
+    constexpr int NT = N / 16, NI = N < 32 ? 1 : N / 32;
+    if (warp < N / 8) {
+      const int mt = warp % (N / 16), nt0 = (warp / (N / 16)) * NT;
+      float acc[NT][4] = {};
+      mma_row<V_EXACT, NT, C>(acc, sm + L::kdT, L::KT, 16 * mt + g, sm + L::vs, L::VS, 8 * nt0 + g, tg);
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn) {
+        float* dst = wk + W::ds + (16 * mt + g) * N + 8 * (nt0 + jn) + 2 * tg;
+        store2(dst, acc[jn][0], acc[jn][1]);
+        store2(dst + 8 * N, acc[jn][2], acc[jn][3]);
+      }
+    }
+    if (warp < 2 * (N / 8) / NI) {
+      const int mt = warp % 2, nt0 = (warp / 2) * NI;
+      float acc[NI][4] = {};
+      mma_row<V_EXACT, NI, C>(acc, sm + L::sc, L::SC, 16 * mt + g, sm + L::vs, L::VS, 8 * nt0 + g, tg);
+#pragma unroll
+      for (int jn = 0; jn < NI; ++jn) {
+        float* dst = wk + W::oi + (16 * mt + g) * N + 8 * (nt0 + jn) + 2 * tg;
+        store2(dst, acc[jn][0], acc[jn][1]);
+        store2(dst + 8 * N, acc[jn][2], acc[jn][3]);
+      }
+    }
+  }
+  // r_dec row-major and exp(L_C)
+  for (int e = tid; e < C * N; e += THREADS) {
+    const int t = e / N, n = e % N;
+    wk[W::rd + e] = sm[L::rdT + n * L::CP + t];
+  }
+  if (tid < N) wk[W::wc + tid] = sm[L::wc + tid];
 }
 
-template <typename T, typename TO, int N>
-__global__ void __launch_bounds__(THREADS)
-    rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
-                      const T* __restrict__ v, const float* __restrict__ logw,
-                      const float* __restrict__ u, const float* __restrict__ s0,
-                      float* __restrict__ s_out, TO* __restrict__ out, int Tlen,
-                      int H) {
-  constexpr int NP = N + 1;      // padded row stride of the [C][N] tiles
-  constexpr int CP = C + 1;
-  constexpr int G = THREADS / N;  // thread groups of N (one per value column)
-  constexpr int TPT = C / G;      // chunk rows per thread in the output step
-  extern __shared__ float sm[];
-  float* S = sm;              // [N][N]  state: row = key channel n, col = value channel m
-  float* rs = S + N * N;      // [C][NP] r
-  float* ks = rs + C * NP;    // [C][NP] k
-  float* vs = ks + C * NP;    // [C][NP] v
-  float* Ls = vs + C * NP;    // [C][NP] L (inclusive cumulative log-decay)
-  float* Lp = Ls + C * NP;    // [C][NP] Lprev = L - logw
-  float* rd = Lp + C * NP;    // [C][NP] r exp(Lprev)
-  float* kd = rd + C * NP;    // [C][NP] k exp(L_C - L)
-  float* sc = kd + C * NP;    // [C][CP] intra-chunk scores, bonus on the diagonal
-  float* wc = sc + C * CP;    // [N] exp(L_C)
-  float* us = wc + N;         // [N] u of this head
+// ------------------------------------------------------------ state kernel
+// Shared memory (floats) of a state CTA that owns NQ value columns.
+template <int N, int NQ>
+struct StateSmem {
+  static constexpr int RD = N + 4;   // r_dec [C][RD]: A fragments
+  static constexpr int SS = NQ + 8;  // S [N][SS]: B fragments (k = row)
+  static constexpr int rd = 0, ds = rd + C * RD, oi = ds + N * NQ, wc = oi + C * NQ;  // dS [N][NQ], intra [C][NQ]
+  static constexpr int stage = wc + N;           // one chunk's work, 16-byte multiple
+  static constexpr int S = STAGES * stage;       // [2][N][SS] by chunk parity
+  static constexpr int total = S + 2 * N * SS;
+  static constexpr size_t bytes = sizeof(float) * total;
+};
 
-  const int bh = blockIdx.x;
+template <typename TO, int N, int NQ>
+__global__ void __launch_bounds__(STATE_THREADS)
+    rwkv6_state_kernel(const float* __restrict__ work, const float* __restrict__ s0, float* __restrict__ s_out,
+                       TO* __restrict__ out, int Tlen, int H) {
+  using L = StateSmem<N, NQ>;
+  using W = Work<N>;
+  constexpr int G = N / NQ;
+  constexpr int NT = NQ / 16;  // output column tiles per warp: 4 warps = 2 row tiles x 2 column halves
+  extern __shared__ __align__(16) float sm[];
+  const int bh = blockIdx.x / G, j = blockIdx.x % G;
   const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x;
-  const size_t row = static_cast<size_t>(H) * N;  // elements per time step
-  const size_t base = static_cast<size_t>(b) * Tlen * row + static_cast<size_t>(h) * N;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int nc = (Tlen + C - 1) / C;
+  const size_t row = static_cast<size_t>(H) * N;
+  const size_t base = static_cast<size_t>(b) * Tlen * row + static_cast<size_t>(h) * N + NQ * j;
+  const float* wk0 = work + static_cast<size_t>(bh) * nc * W::size;
 
-  for (int e = tid; e < N * N; e += THREADS)
-    S[e] = s0 != nullptr ? s0[static_cast<size_t>(bh) * N * N + e] : 0.f;
-  for (int n = tid; n < N; n += THREADS) us[n] = u[h * N + n];
-
-  for (int t0 = 0; t0 < Tlen; t0 += C) {
-    const int cl = min(C, Tlen - t0);
-    for (int i = tid; i < C * N; i += THREADS) {
-      const int t = i / N, n = i % N;
-      float rv = 0.f, kv = 0.f, vv = 0.f, lw = 0.f;
-      if (t < cl) {
-        const size_t off = base + static_cast<size_t>(t0 + t) * row + n;
-        rv = to_f32(r[off]);
-        kv = to_f32(k[off]);
-        vv = to_f32(v[off]);
-        lw = logw[off];
-      }
-      rs[t * NP + n] = rv;
-      ks[t * NP + n] = kv;
-      vs[t * NP + n] = vv;
-      Lp[t * NP + n] = lw;  // logw for now; Lprev after the cumsum
-    }
-    __syncthreads();
-
-    // cumulative log-decay, one thread per channel
-    if (tid < N) {
-      const int n = tid;
-      float acc = 0.f;
-      for (int t = 0; t < C; ++t) {
-        const float lw = Lp[t * NP + n];
-        acc += lw;
-        Ls[t * NP + n] = acc;
-        const float lprev = acc - lw;
-        Lp[t * NP + n] = lprev;
-        rd[t * NP + n] = rs[t * NP + n] * expf(lprev);
-      }
-      wc[n] = expf(acc);
-      for (int t = 0; t < C; ++t)
-        kd[t * NP + n] = ks[t * NP + n] * expf(acc - Ls[t * NP + n]);
-    }
-    __syncthreads();
-
-    // scores[t][i], i < t: sum_n r_t k_i exp(clip(Lprev_t - L_i, -60, 0));
-    // scores[t][t]: the bonus sum_n r_t k_t u
-    for (int p = tid; p < C * C; p += THREADS) {
-      const int t = p / C, i = p % C;
-      if (i > t) continue;
-      float acc = 0.f;
-      if (i < t) {
-#pragma unroll 8
-        for (int n = 0; n < N; ++n) {
-          const float ex = fminf(fmaxf(Lp[t * NP + n] - Ls[i * NP + n], -60.f), 0.f);
-          acc += rs[t * NP + n] * ks[i * NP + n] * expf(ex);
-        }
-      } else {
-#pragma unroll 8
-        for (int n = 0; n < N; ++n) acc += rs[t * NP + n] * ks[t * NP + n] * us[n];
-      }
-      sc[t * CP + i] = acc;
-    }
-    __syncthreads();
-
-    // out[t][m] = sum_n rd[t][n] S[n][m] + sum_{i <= t} sc[t][i] v[i][m]
-    {
-      const int m = tid % N, tg = tid / N;
-      float acc[TPT];
+  // one chunk's work into a stage: r_dec whole, this CTA's NQ columns of dS
+  // and of the intra term, exp(L_C); each thread's 16-byte pieces are fixed
+  constexpr int P_RD = C * N / 4, P_DS = N * NQ / 4, P_OI = C * NQ / 4, P_WC = N / 4;
+  constexpr int PIECES = P_RD + P_DS + P_OI + P_WC;
+  constexpr int PER = (PIECES + STATE_THREADS - 1) / STATE_THREADS;
+  int src_at[PER], dst_at[PER];
 #pragma unroll
-      for (int j = 0; j < TPT; ++j) acc[j] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        const float s = S[n * N + m];
-#pragma unroll
-        for (int j = 0; j < TPT; ++j) acc[j] += rd[(tg + G * j) * NP + n] * s;
-      }
-#pragma unroll
-      for (int j = 0; j < TPT; ++j) {
-        const int t = tg + G * j;
-        for (int i = 0; i <= t; ++i) acc[j] += sc[t * CP + i] * vs[i * NP + m];
-        if (t < cl) store(out + base + static_cast<size_t>(t0 + t) * row + m, acc[j]);
-      }
+  for (int w = 0; w < PER; ++w) {
+    const int e = tid + w * STATE_THREADS;
+    src_at[w] = -1;
+    dst_at[w] = 0;
+    if (e < P_RD) {
+      const int t = e / (N / 4), q = e % (N / 4);
+      src_at[w] = W::rd + t * N + 4 * q;
+      dst_at[w] = L::rd + t * L::RD + 4 * q;
+    } else if (e < P_RD + P_DS) {
+      const int f = e - P_RD, n = f / (NQ / 4), q = f % (NQ / 4);
+      src_at[w] = W::ds + n * N + NQ * j + 4 * q;
+      dst_at[w] = L::ds + n * NQ + 4 * q;
+    } else if (e < P_RD + P_DS + P_OI) {
+      const int f = e - P_RD - P_DS, t = f / (NQ / 4), q = f % (NQ / 4);
+      src_at[w] = W::oi + t * N + NQ * j + 4 * q;
+      dst_at[w] = L::oi + t * NQ + 4 * q;
+    } else if (e < PIECES) {
+      const int q = e - P_RD - P_DS - P_OI;
+      src_at[w] = W::wc + 4 * q;
+      dst_at[w] = L::wc + 4 * q;
     }
-    __syncthreads();
+  }
+  auto load = [&](int stage, int c) {
+    const float* wk = wk0 + static_cast<size_t>(c) * W::size;
+    float* st = sm + stage * L::stage;
+#pragma unroll
+    for (int w = 0; w < PER; ++w)
+      if (src_at[w] >= 0) cp_async16(st + dst_at[w], wk + src_at[w]);
+  };
 
-    // S[n][m] = S[n][m] exp(L_C[n]) + sum_i kd[i][n] v[i][m]
-    for (int e = tid; e < N * N; e += THREADS) {
-      const int n = e / N, m = e % N;
-      float acc = S[e] * wc[n];
-      for (int i = 0; i < C; ++i) acc += kd[i * NP + n] * vs[i * NP + m];
-      S[e] = acc;
-    }
-    __syncthreads();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nc) load(s, s);
+    cp_async_commit();
+  }
+  for (int e = tid; e < N * NQ; e += STATE_THREADS) {
+    const int n = e / NQ, m = e % NQ;
+    sm[L::S + n * L::SS + m] = s0 != nullptr ? s0[static_cast<size_t>(bh) * N * N + n * N + NQ * j + m] : 0.f;
   }
 
-  if (s_out != nullptr)
-    for (int e = tid; e < N * N; e += THREADS)
-      s_out[static_cast<size_t>(bh) * N * N + e] = S[e];
+  for (int c = 0; c < nc; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk c's work has landed; chunk c - 1's stage is free
+    if (c + STAGES - 1 < nc) load((c + STAGES - 1) % STAGES, c + STAGES - 1);
+    cp_async_commit();
+    const float* st = sm + (c % STAGES) * L::stage;
+    const float* Sc = sm + L::S + (c & 1) * N * L::SS;
+    float* Sn = sm + L::S + ((c + 1) & 1) * N * L::SS;
+    const int t0 = c * C, cl = min(C, Tlen - t0);
+
+    // warps 0-3: a row of NT (16 x 8) output tiles each = intra + r_dec S_c;
+    // warps 4-5 meanwhile: S_{c+1} = diag(exp(L_C)) S_c + dS_c, the chain
+    if (warp < 4) {
+      const int r0 = 16 * (warp >> 1) + g, m0 = (NQ / 2) * (warp & 1);
+      float acc[NT][4] = {};
+      mma_row<false, NT, N>(acc, st + L::rd, L::RD, r0, Sc, L::SS, m0 + g, tg);
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn) {
+        const int col = m0 + 8 * jn + 2 * tg;
+        const float2 i0 = *reinterpret_cast<const float2*>(st + L::oi + r0 * NQ + col);
+        const float2 i1 = *reinterpret_cast<const float2*>(st + L::oi + (r0 + 8) * NQ + col);
+        if (r0 < cl) store2(out + base + static_cast<size_t>(t0 + r0) * row + col, i0.x + acc[jn][0], i0.y + acc[jn][1]);
+        if (r0 + 8 < cl)
+          store2(out + base + static_cast<size_t>(t0 + r0 + 8) * row + col, i1.x + acc[jn][2], i1.y + acc[jn][3]);
+      }
+    } else {
+#pragma unroll
+      for (int e = tid - 128; e < N * NQ / 4; e += STATE_THREADS - 128) {
+        const int n = e / (NQ / 4), m = 4 * (e % (NQ / 4));
+        const float w = st[L::wc + n];
+        const float4 x = *reinterpret_cast<const float4*>(Sc + n * L::SS + m);
+        const float4 d = *reinterpret_cast<const float4*>(st + L::ds + n * NQ + m);
+        *reinterpret_cast<float4*>(Sn + n * L::SS + m) =
+            make_float4(fmaf(w, x.x, d.x), fmaf(w, x.y, d.y), fmaf(w, x.z, d.z), fmaf(w, x.w, d.w));
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  const float* Sf = sm + L::S + (nc & 1) * N * L::SS;
+  for (int e = tid; e < N * NQ; e += STATE_THREADS) {
+    const int n = e / NQ, m = e % NQ;
+    s_out[static_cast<size_t>(bh) * N * N + n * N + NQ * j + m] = Sf[n * L::SS + m];
+  }
 }
 
-template <typename T, typename TO, int N>
-int launch(int B, int Tlen, int H, cudaStream_t stream, const void* r,
-           const void* k, const void* v, const void* logw, const void* u,
-           const void* s0, void* s_out, void* out) {
-  constexpr size_t smem = smem_bytes<N>();
-  cudaError_t err = cudaFuncSetAttribute(
-      rwkv6_scan_kernel<T, TO, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+template <typename TO, int N, int NQ>
+int launch_state(int B, int Tlen, int H, cudaStream_t stream, const void* s0, void* s_out, void* out, void* work) {
+  constexpr size_t smem = StateSmem<N, NQ>::bytes;
+  auto* kern = rwkv6_state_kernel<TO, N, NQ>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  rwkv6_scan_kernel<T, TO, N><<<B * H, THREADS, smem, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(logw),
-      static_cast<const float*>(u), static_cast<const float*>(s0),
-      static_cast<float*>(s_out), static_cast<TO*>(out), Tlen, H);
+  kern<<<B * H * (N / NQ), STATE_THREADS, smem, stream>>>(static_cast<const float*>(work),
+                                                         static_cast<const float*>(s0), static_cast<float*>(s_out),
+                                                         static_cast<TO*>(out), Tlen, H);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, typename TO, int N>
+int launch(int B, int Tlen, int H, int split, cudaStream_t stream, const void* r, const void* k, const void* v,
+           const void* logw, const void* u, const void* s0, void* s_out, void* out, void* work) {
+  const int nc = (Tlen + C - 1) / C;
+  if (nc > 0) {
+    constexpr size_t smem = ChunkSmem<N>::bytes;
+    auto* kern = rwkv6_chunk_kernel<T, N>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<dim3(nc, B * H), THREADS, smem, stream>>>(static_cast<const T*>(r), static_cast<const T*>(k),
+                                                     static_cast<const T*>(v), static_cast<const float*>(logw),
+                                                     static_cast<const float*>(u), static_cast<float*>(work), Tlen, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // split: state CTAs per head, N / split value columns each
+  if (split == 1) return launch_state<TO, N, N>(B, Tlen, H, stream, s0, s_out, out, work);
+  if constexpr (N >= 32)
+    if (split == 2) return launch_state<TO, N, N / 2>(B, Tlen, H, stream, s0, s_out, out, work);
+  if constexpr (N >= 64)
+    if (split == 4) return launch_state<TO, N, N / 4>(B, Tlen, H, stream, s0, s_out, out, work);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T, typename TO>
-int dispatch(int N, int B, int Tlen, int H, cudaStream_t s, const void* r,
-             const void* k, const void* v, const void* logw, const void* u,
-             const void* s0, void* s_out, void* out) {
+int dispatch(int N, int B, int Tlen, int H, int split, cudaStream_t s, const void* r, const void* k, const void* v,
+             const void* logw, const void* u, const void* s0, void* s_out, void* out, void* work) {
   switch (N) {
-    case 16: return launch<T, TO, 16>(B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
-    case 32: return launch<T, TO, 32>(B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
-    case 64: return launch<T, TO, 64>(B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
+    case 16: return launch<T, TO, 16>(B, Tlen, H, split, s, r, k, v, logw, u, s0, s_out, out, work);
+    case 32: return launch<T, TO, 32>(B, Tlen, H, split, s, r, k, v, logw, u, s0, s_out, out, work);
+    case 64: return launch<T, TO, 64>(B, Tlen, H, split, s, r, k, v, logw, u, s0, s_out, out, work);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
+// Floats of `work` per (batch, head, chunk) at head dim N.
+extern "C" int rwkv6_scan_work_floats(int N) { return 2 * C * N + N * N + N; }
+
 // dtype: 1 = float32, 2 = bfloat16, of r, k, v; out_dtype the same codes,
-// of out.  N in {16, 32, 64}.  Returns a cudaError_t: 0 when the launch was
-// accepted.  Does not synchronise.
-extern "C" int rwkv6_scan_launch(int dtype, int out_dtype, const void* r,
-                                 const void* k, const void* v,
-                                 const void* logw, const void* u,
-                                 const void* s0, void* s_out, void* out, int B,
-                                 int Tlen, int H, int N, void* stream) {
+// of out.  N in {16, 32, 64}.  work: B * H * ceil(T / 32) *
+// rwkv6_scan_work_floats(N) floats, 16-byte aligned.  split (the variant):
+// state CTAs per head, 1, 2 or 4, at most N / 16.  Returns a cudaError_t: 0
+// when both launches were accepted.  Does not synchronise.
+extern "C" int rwkv6_scan_launch(int dtype, int out_dtype, const void* r, const void* k, const void* v,
+                                 const void* logw, const void* u, const void* s0, void* s_out, void* out, int B,
+                                 int Tlen, int H, int N, void* stream, void* work, int split) {
   if (B <= 0 || Tlen < 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype * 4 + out_dtype) {
-    case 1 * 4 + 1: return dispatch<float, float>(N, B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
-    case 1 * 4 + 2: return dispatch<float, __nv_bfloat16>(N, B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
-    case 2 * 4 + 1: return dispatch<__nv_bfloat16, float>(N, B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
-    case 2 * 4 + 2: return dispatch<__nv_bfloat16, __nv_bfloat16>(N, B, Tlen, H, s, r, k, v, logw, u, s0, s_out, out);
+    case 1 * 4 + 1: return dispatch<float, float>(N, B, Tlen, H, split, s, r, k, v, logw, u, s0, s_out, out, work);
+    case 1 * 4 + 2: return dispatch<float, __nv_bfloat16>(N, B, Tlen, H, split, s, r, k, v, logw, u, s0, s_out, out, work);
+    case 2 * 4 + 1: return dispatch<__nv_bfloat16, float>(N, B, Tlen, H, split, s, r, k, v, logw, u, s0, s_out, out, work);
+    case 2 * 4 + 2:
+      return dispatch<__nv_bfloat16, __nv_bfloat16>(N, B, Tlen, H, split, s, r, k, v, logw, u, s0, s_out, out, work);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -293,6 +293,142 @@ def test_scan_kernel_float32_output(card, t):
     assert _rel_err(got, want) <= SCAN_TOL
 
 
+def _strong_then_weak(b, t, h, n, strong, device):
+    """logw = -e^6 for the first ``strong`` steps of every chunk of 32, then
+    -1e-3: the pattern whose chunk-wide cumulative sums cancel."""
+    lw = torch.full((b, t, h, n), -1e-3, device=device)
+    for c0 in range(0, t, 32):
+        lw[:, c0:c0 + strong] = -float(np.exp(6.0))
+    return lw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [16, 32, 64])
+@pytest.mark.parametrize("strong", [16, 4])
+def test_scan_kernel_strong_then_weak_decay(card, dtype, n, strong):
+    """Ragged T = 100 with a carried state: float32 output and state within
+    SCAN_TOL of the plain version where the decay is -e^6 for a few steps
+    and -1e-3 after (the differences-of-cumulative-sums form reads ~3e-4
+    here; tests/test_torch_scan_design.py)."""
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
+
+    g = torch.Generator(device=card).manual_seed(n * strong)
+    b, t, h = 2, 100, 3
+    r, k = ((0.5 * torch.randn(b, t, h, n, generator=g, device=card)).to(dtype) for _ in range(2))
+    v = torch.randn(b, t, h, n, generator=g, device=card).to(dtype)
+    logw = _strong_then_weak(b, t, h, n, strong, card)
+    u = 0.1 * torch.randn(h, n, generator=g, device=card)
+    s0 = 0.1 * torch.randn(b, h, n, n, generator=g, device=card)
+    got, s_got = rwkv6_wkv(r, k, v, logw, u, state=s0, out_dtype=torch.float32)
+    want, s_want = rwkv6_wkv(r, k, v, logw, u, state=s0, out_dtype=torch.float32, use_kernel=False)
+    assert _rel_err(got, want) <= SCAN_TOL
+    assert _rel_err(s_got, s_want) <= SCAN_TOL
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_scan_kernel_at_the_prefill_shape(card, b):
+    """rwkv6_3b's time-mix shape, T = 2048, H = 40, N = 64, bf16 in and
+    float32 out, at B = 1 and B = 4 (each picks its own split)."""
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
+
+    g = torch.Generator(device=card).manual_seed(b)
+    t, h, n = 2048, 40, 64
+    r, k = ((0.5 * torch.randn(b, t, h, n, generator=g, device=card)).bfloat16() for _ in range(2))
+    v = torch.randn(b, t, h, n, generator=g, device=card).bfloat16()
+    logw = -torch.exp(torch.rand(b, t, h, n, generator=g, device=card) * 14.0 - 8.0)
+    u = 0.1 * torch.randn(h, n, generator=g, device=card)
+    got, s_got = rwkv6_wkv(r, k, v, logw, u, out_dtype=torch.float32)
+    want, s_want = rwkv6_wkv(r, k, v, logw, u, out_dtype=torch.float32, use_kernel=False)
+    assert _rel_err(got, want) <= SCAN_TOL
+    assert _rel_err(s_got, s_want) <= SCAN_TOL
+
+
+def test_scan_kernel_is_bitwise_reproducible(card):
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
+
+    g = torch.Generator(device=card).manual_seed(9)
+    b, t, h, n = 2, 300, 8, 64
+    r, k, v = (torch.randn(b, t, h, n, generator=g, device=card).bfloat16() for _ in range(3))
+    logw = -torch.exp(torch.rand(b, t, h, n, generator=g, device=card) * 14.0 - 8.0)
+    u = 0.1 * torch.randn(h, n, generator=g, device=card)
+    o1, s1 = rwkv6_wkv(r, k, v, logw, u, out_dtype=torch.float32)
+    o2, s2 = rwkv6_wkv(r, k, v, logw, u, out_dtype=torch.float32)
+    assert torch.equal(o1, o2) and torch.equal(s1, s2)
+
+
+@pytest.mark.parametrize("cut", [64, 45])
+def test_scan_kernel_carries_state_across_calls(card, cut):
+    """Two calls, the second from the first's final state, against one call
+    over the whole sequence: bitwise equal when the cut falls on a chunk
+    boundary (the same arithmetic), within SCAN_TOL when it does not."""
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
+
+    g = torch.Generator(device=card).manual_seed(cut)
+    b, t, h, n = 2, 150, 3, 64
+    r, k = ((0.5 * torch.randn(b, t, h, n, generator=g, device=card)).bfloat16() for _ in range(2))
+    v = torch.randn(b, t, h, n, generator=g, device=card).bfloat16()
+    logw = -torch.exp(torch.rand(b, t, h, n, generator=g, device=card) * 14.0 - 8.0)
+    u = 0.1 * torch.randn(h, n, generator=g, device=card)
+    whole, s_whole = rwkv6_wkv(r, k, v, logw, u, out_dtype=torch.float32)
+    head = [a[:, :cut].contiguous() for a in (r, k, v, logw)]
+    rest = [a[:, cut:].contiguous() for a in (r, k, v, logw)]
+    first, s1 = rwkv6_wkv(*head, u, out_dtype=torch.float32)
+    second, s2 = rwkv6_wkv(*rest, u, state=s1, out_dtype=torch.float32)
+    got = torch.cat([first, second], 1)
+    if cut % 32 == 0:
+        assert torch.equal(got, whole) and torch.equal(s2, s_whole)
+    else:
+        assert _rel_err(got, whole) <= SCAN_TOL and _rel_err(s2, s_whole) <= SCAN_TOL
+
+
+@pytest.mark.parametrize("split", [4, 2, 1])
+def test_scan_kernel_every_split_matches_plain_and_counts(card, split):
+    """Each state split, forced, against the plain version, counted under its
+    own name; and the split the wrapper picks by itself."""
+    from repro_torch.kernels.rwkv6_scan import ops
+
+    g = torch.Generator(device=card).manual_seed(split)
+    b, t, h, n = 2, 77, 5, 64
+    r, k = ((0.5 * torch.randn(b, t, h, n, generator=g, device=card)).bfloat16() for _ in range(2))
+    v = torch.randn(b, t, h, n, generator=g, device=card).bfloat16()
+    logw = -torch.exp(torch.rand(b, t, h, n, generator=g, device=card) * 14.0 - 8.0)
+    u = 0.1 * torch.randn(h, n, generator=g, device=card)
+    s0 = 0.1 * torch.randn(b, h, n, n, generator=g, device=card)
+    before = dict(kernels.VARIANT_LAUNCHES["rwkv6_scan"])
+    got, s_got = ops._launch(r, k, v, logw, u, s0, torch.float32, split)
+    torch.cuda.synchronize()
+    after = kernels.VARIANT_LAUNCHES["rwkv6_scan"]
+    assert {name: after[name] - before[name] for name in after} == {
+        name: int(name == f"split{split}") for name in after}
+    want, s_want = ops.rwkv6_wkv(r, k, v, logw, u, state=s0, out_dtype=torch.float32, use_kernel=False)
+    assert _rel_err(got, want) <= SCAN_TOL and _rel_err(s_got, s_want) <= SCAN_TOL
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    picked = ops.variant(n, b * h, sms)
+    before = kernels.VARIANT_LAUNCHES["rwkv6_scan"][picked]
+    ops.rwkv6_wkv(r, k, v, logw, u, state=s0)
+    assert kernels.VARIANT_LAUNCHES["rwkv6_scan"][picked] == before + 1
+
+
+def test_scan_wrapper_raises_for_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels.rwkv6_scan import ops
+
+    a = torch.zeros(1, 8, 2, 16, device=card)
+    u = torch.zeros(2, 16, device=card)
+    x = torch.zeros(1 * 8 * 2 * 16 + 1, device=card)[1:].view(1, 8, 2, 16)
+    with pytest.raises(ValueError):  # read in 16-byte pieces: 16-byte aligned only
+        ops.rwkv6_wkv(x, a, a, a, u)
+    with pytest.raises(TypeError):
+        ops.rwkv6_wkv(a.half(), a.half(), a.half(), a, u)
+    with pytest.raises(TypeError):
+        ops.rwkv6_wkv(a, a, a, a, u, out_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        ops.rwkv6_wkv(a.transpose(1, 2).contiguous().transpose(1, 2), a, a, a, u)
+    with pytest.raises(ValueError):
+        ops.rwkv6_wkv(a, a, a, a, u.cpu())
+    with pytest.raises(RuntimeError):  # a split the head dim does not have
+        ops._launch(a, a, a, a, u, None, torch.float32, 2)
+
+
 def test_lm_wrappers_raise_instead_of_falling_back(card):
     from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
     from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
