@@ -11,10 +11,12 @@ Phases (any failure exits non-zero):
      work split (long segments cut into items, skinny K and N, empty
      segments, per-pair extents); times the f64 tiles on the FP64 tensor
      cores on a dense case beside torch.bmm;
-  3. small exact check: 3x2 open J1-J2 through run_dmrg(algo="csr") against
+  3. small exact check: 3x2 open J1-J2 through run_dmrg(algo="csr") (the
+     per-sector SVD and three-call environment updates, as before) against
      exact diagonalization and against algo="csr_ref" on the card;
   4. full size: J1-J2 (J2=0.5) on the 8x4 cylinder (32 sites), f64,
-     algo="csr", one sweep per entry of BONDS, davidson_iters=2: launch
+     algo="csr" (per-sector SVD, three-call environment updates, as in
+     PRs 11-14), one sweep per entry of BONDS, davidson_iters=2: launch
      counts, per-sweep times and flops, peak memory, then the kernel held
      against its plain version, and timed beside one library call, on the
      four matvec contractions at the middle bond, with the variant each took.  From a product state the bond grows at most
@@ -42,7 +44,18 @@ Phases (any failure exits non-zero):
      B=1 as well, each with its bound from the split of its work between
      tensor cores, CUDA cores and bytes; flash's tolerance checked against
      plain versions with a planted fault;
-  10. summary lines, then {"ok": true, "device": {...}} as the last line.
+  10. the planned pipeline, run_dmrg(algo="batched", jit_matvec=True) with
+     the reference's defaults (planned batched SVD, fused environment
+     updates; matvec and environment updates replayed as CUDA graphs per
+     padded structure): the 3x2 case against ED (1e-8) and phase 3 (1e-10);
+     the 8x4 run on the full BONDS, per sweep its seconds, SVD and
+     environment seconds, graph captures and replays, block GEMM launches
+     by variant (replays included) and peak memory, its last energy held to
+     phase 4's (1e-8); on its middle bond, a graph replay against the eager
+     matvec (1e-12 relative) for two inputs in turn; the block GEMM on that
+     matvec's largest bucket against its plain version, timed beside
+     bmm + index_add_, with its bound;
+  11. summary lines, then {"ok": true, "device": {...}} as the last line.
 Needs a CUDA card; exits non-zero without one, printing no result.
 """
 from __future__ import annotations
@@ -707,6 +720,143 @@ def flash_controls(q, k, v, want, tile: int = 64) -> dict:
             for name, (p, l) in faults.items()}
 
 
+# ---------------------------------------------------------------- phase 10
+def bst_rel_err(got, want) -> float:
+    """Largest |got - want| over the blocks, relative to the largest |want|."""
+    if set(got.blocks) != set(want.blocks):
+        fail(f"block keys differ: {sorted(set(got.blocks) ^ set(want.blocks))[:5]}")
+    scale = max(b.abs().max().item() for b in want.blocks.values())
+    return max((got.blocks[k] - want.blocks[k]).abs().max().item() for k in want.blocks) / max(scale, 1e-300)
+
+
+def planned_pipeline(dev, record, space, terms, mpo):
+    """run_dmrg(algo="batched", jit_matvec=True) with the reference's
+    defaults: the 3x2 case against ED and phase 3, the 8x4 run on the full
+    BONDS against phase 4, a graph replay against the eager matvec on its
+    middle bond, and the block GEMM on that matvec's largest bucket."""
+    from repro_torch import kernels
+    from repro_torch.core import run_dmrg
+    from repro_torch.core.ed import ground_energy
+    from repro_torch.core.env import get_contractor, left_edge, right_edge
+    from repro_torch.core.models import heisenberg_j1j2_terms
+    from repro_torch.core.siteops import spin_half_space
+    from repro_torch.dist.batch import bucket_operands, matricize_lhs, matricize_rhs, pad_block_sparse
+    from repro_torch.dist.engine import MATVEC_AXES
+    from repro_torch.kernels.block_gemm.ops import block_sparse_matmul
+    from repro_torch.kernels.block_gemm.ref import block_sparse_matmul_ref
+    from repro_torch.kernels.block_gemm.work import variant
+    from repro_torch.tensor.blocksparse import BlockSparseTensor
+
+    rec = {}
+    kw = dict(algo="batched", jit_matvec=True, device=dev)
+    # the 3x2 case, against ED and the csr run of phase 3
+    sp, small_terms = spin_half_space(), heisenberg_j1j2_terms(3, 2, 1.0, 0.5, cylinder=False)
+    e_small = run_dmrg(sp, small_terms, 6, bond_schedule=(8, 16), davidson_iters=6, **kw).energy
+    e_ed, e_csr = record["small"]["e_ed"], record["small"]["e_csr"]
+    log(f"  3x2 E(batched, graphs)={e_small:.12f} |dE_ED|={abs(e_small - e_ed):.2e} |dE_csr|={abs(e_small - e_csr):.2e}")
+    if not (abs(e_small - e_ed) <= 1e-8 and abs(e_small - e_csr) <= 1e-10):
+        fail(f"3x2 batched energy {e_small} vs ED {e_ed} and csr {e_csr}")
+    rec["small"] = dict(energy=e_small, e_ed=e_ed, e_csr=e_csr)
+
+    # the 8x4 run on the full schedule
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run_dmrg(space, terms, len(mpo), bond_schedule=BONDS, sweeps_per_bond=1, davidson_iters=2, mpo=mpo, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, variants = dict(kernels.LAUNCHES), dict(kernels.VARIANT_LAUNCHES["block_gemm"])
+    sweeps = []
+    for m, st in zip(BONDS, res.sweep_stats):
+        row = dict(m=m, energy=st.energy, seconds=st.seconds, svd_seconds=st.svd_seconds, env_seconds=st.env_seconds,
+                   max_bond=st.max_bond, trunc_err=st.trunc_err, davidson_restarts=st.davidson_restarts,
+                   davidson_exhausted=st.davidson_exhausted, graphs=st.graphs,
+                   block_gemm_launches=st.block_gemm_launches, peak_gib=st.peak_bytes / 2**30)
+        sweeps.append(row)
+        log("  sweep " + json.dumps(row))
+    e_last, e_csr_last = sweeps[-1]["energy"], record["full_size"]["sweeps"][-1]["energy"]
+    log(f"  run {wall:.1f} s, block_gemm launches by variant {variants} (replays included), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last sweep E={e_last:.12f}, csr (phase 4) "
+        f"{e_csr_last:.12f}, |dE|={abs(e_last - e_csr_last):.2e}")
+    es = [r["energy"] for r in sweeps]
+    if not all(np.isfinite(es)) or not all(es[i + 1] <= es[i] + 1e-9 for i in range(len(es) - 1)):
+        fail(f"batched sweep energies {es}")
+    if any(r["davidson_exhausted"] for r in sweeps):
+        fail("a batched sweep had exhausted Davidson solves")
+    if not abs(e_last - e_csr_last) <= 1e-8:
+        fail(f"batched last-sweep energy {e_last} vs csr {e_csr_last}")
+    replays = sum(r["graphs"]["graph_replays"] for r in sweeps)
+    if launches["block_gemm"] == 0 or replays == 0 or variants["skinny"] == 0 or variants["tiled_dmma"] == 0:
+        fail(f"the batched run launched {variants} block GEMMs with {replays} graph replays")
+    rec.update(bonds=BONDS, sweeps=sweeps, wall_s=wall, launches=launches, variant_launches=variants,
+               graph_replays=replays, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    # graph replays against the eager matvec on the middle bond, with a
+    # fresh engine: the first call captures, every call replays
+    T, n = res.mps.tensors, len(mpo)
+    j = n // 2 - 1
+    engine = get_contractor("batched", dev)
+    A = left_edge(T[0], mpo[0])
+    for i in range(j):
+        A = engine.env_update_left(A, T[i], mpo[i])
+    B = right_edge(T[n - 1], mpo[n - 1])
+    for i in range(n - 2, j, -1):
+        B = engine.env_update_right(B, T[i + 1], mpo[i + 1])
+    A, Wj, Wj1, B = (pad_block_sparse(t) for t in (A, mpo[j], mpo[j + 1], B))
+    x1 = pad_block_sparse(engine(T[j], T[j + 1], ((2,), (0,))))
+    g = torch.Generator(device=dev).manual_seed(7)
+    x2 = BlockSparseTensor(x1.indices, {k: torch.randn(b.shape, generator=g, dtype=b.dtype, device=dev)
+                                        for k, b in x1.blocks.items()}, x1.charge)
+    mv = engine.matvec_fn(A, Wj, Wj1, B, jit=True)
+    before = engine.graphs.stats()
+    outs = [(x, mv(x)) for x in (x1, x2, x1, x2)]
+    after = engine.graphs.stats()
+    if (after["graph_captures"] - before["graph_captures"], after["graph_replays"] - before["graph_replays"]) != (1, 4):
+        fail(f"the middle-bond matvec did not capture once and replay four times: {before} -> {after}")
+    errs = [bst_rel_err(y, engine.two_site_matvec(A, Wj, Wj1, B, x)) for x, y in outs]
+    apart = bst_rel_err(outs[1][1], outs[0][1])
+    log(f"  middle bond {j}: graph replays vs eager matvec rel err {errs} (x1, x2, x1, x2); "
+        f"x1 vs x2 results {apart:.2e} apart")
+    if not max(errs) <= 1e-12 or not apart > 1e-3:
+        fail(f"graph replay vs eager {errs}, replays of two inputs {apart:.2e} apart")
+    rec["replay_vs_eager"] = dict(bond=j, rel_errs=errs, x1_vs_x2=apart, graphs=after)
+
+    # the block GEMM on the largest bucket of that matvec
+    best, t = None, x1
+    for i, axes in enumerate(MATVEC_AXES):
+        a, b = (A, t) if i == 0 else (t, (Wj, Wj1, B)[i - 1])
+        plan = engine.cache.get(a, b, axes)
+        for bucket, oi in zip(plan.batched.buckets, plan.batched.device_tables(dev)):
+            flops = 2.0 * len(bucket.oi) * bucket.m * bucket.k * bucket.n
+            if best is None or flops > best[0]:
+                best = (flops, i, bucket, oi, plan, a, b)
+        t = engine(a, b, axes)
+    flops, step, bucket, oi, plan, a, b = best
+    lhs, rhs = bucket_operands(bucket, matricize_lhs(a, plan.keep_a, plan.ax_a), matricize_rhs(b, plan.keep_b, plan.ax_b))
+    O = len(bucket.out_keys)
+    got = block_sparse_matmul(lhs, rhs, oi, O, work=bucket.work)
+    want = block_sparse_matmul_ref(lhs, rhs, oi, O)
+    err, rel = rel_err(got, want)
+    if not rel <= TOL[torch.float64]:
+        fail(f"largest bucket: kernel vs plain rel err {rel:.3e}")
+    idx = oi.long()
+
+    def library():
+        return torch.zeros((O, bucket.m, bucket.n), dtype=lhs.dtype, device=dev).index_add_(0, idx, torch.bmm(lhs, rhs))
+
+    nbytes = lhs.element_size() * (lhs.numel() + rhs.numel() + O * bucket.m * bucket.n) + 4 * len(bucket.oi)
+    row = dict(step=step, P=len(bucket.oi), M=bucket.m, K=bucket.k, N=bucket.n, O=O,
+               variant=variant(bucket.work.route, lhs.dtype), max_abs_err=err, rel_err=rel, flops=flops,
+               bytes=nbytes, **timed(dict(ms=lambda: block_sparse_matmul(lhs, rhs, oi, O, work=bucket.work),
+                                          plain_ms=lambda: block_sparse_matmul_ref(lhs, rhs, oi, O),
+                                          library_ms=library), dict(ms=20, plain_ms=20, library_ms=20)),
+               **bound(flops, PEAK_FLOPS[lhs.dtype], nbytes))
+    log("  largest bucket " + json.dumps(row))
+    rec["largest_bucket"] = row
+    return rec
+
+
 def timed(fns, reps):
     """Each function's time, the faster of two interleaved CUDA-event means."""
     runs = {k: [] for k in fns}
@@ -774,7 +924,7 @@ def main():
     sp = spin_half_space()
     terms = heisenberg_j1j2_terms(3, 2, 1.0, 0.5, cylinder=False)
     e_ed = ground_energy(sp, terms, 6)
-    kw = dict(bond_schedule=(8, 16), davidson_iters=6, device=dev)
+    kw = dict(bond_schedule=(8, 16), davidson_iters=6, device=dev, svd_method="unplanned", jit_env=False)
     e_csr = run_dmrg(sp, terms, 6, algo="csr", **kw).energy
     e_ref = run_dmrg(sp, terms, 6, algo="csr_ref", **kw).energy
     log(f"phase 3: 3x2 E(csr)={e_csr:.12f} E(ED)={e_ed:.12f} |dE_ED|={abs(e_csr - e_ed):.2e} |dE_ref|={abs(e_csr - e_ref):.2e}")
@@ -795,7 +945,7 @@ def main():
     kernels.reset_launches()
     t0 = time.perf_counter()
     res = run_dmrg(space, terms, n, bond_schedule=BONDS, sweeps_per_bond=1, davidson_iters=2,
-                   algo="csr", mpo=mpo, device=dev)
+                   algo="csr", svd_method="unplanned", jit_env=False, mpo=mpo, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -843,15 +993,27 @@ def main():
     timing = lm_kernel_timings(dev)
     record["lm_kernel_timings"] = timing
 
-    # ---- phase 10: summary
+    # ---- phase 10: the planned pipeline
+    log("phase 10: run_dmrg(algo=\"batched\", jit_matvec=True): 3x2, then the 8x4 run on the full BONDS")
+    record["planned"] = planned = planned_pipeline(dev, record, space, terms, mpo)
+
+    # ---- phase 11: summary
     total = lambda k: sum(r[k] for r in mid)
     bound_ops = sum(r["bound_ms"] for r in mid if r["bound_by"] == "operations")
+    bucket = planned["largest_bucket"]
     entries = [dict(
         name="block_gemm", route="cuda", source="src/repro_torch/kernels/block_gemm/block_gemm.cu",
-        replaces="src/repro/kernels/block_gemm/kernel.py:59", launches=launches["block_gemm"],
-        max_abs_err=max(r["max_abs_err"] for r in mid), ms=total("ms"), plain_ms=total("plain_ms"),
-        bound_ms=total("bound_ms"), bound_by="operations" if bound_ops >= total("bound_ms") / 2 else "bytes",
+        replaces="src/repro/kernels/block_gemm/kernel.py:59",
+        launches=launches["block_gemm"] + planned["launches"]["block_gemm"],
+        max_abs_err=max([r["max_abs_err"] for r in mid] + [bucket["max_abs_err"]]), ms=total("ms"),
+        plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+        bound_by="operations" if bound_ops >= total("bound_ms") / 2 else "bytes",
         library_ms=total("library_ms"), variants=gemm_variants,
+        paths={"csr (phase 4; ms etc.: the middle-bond matvec's four launches)": dict(
+                   launches=launches["block_gemm"], variants=gemm_variants),
+               "batched with graphs (phase 10; ms etc.: the middle-bond matvec's largest bucket)": dict(
+                   launches=planned["launches"]["block_gemm"], variants=planned["variant_launches"],
+                   **{k: bucket[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")})},
     )]
     for name, arch, replaces in (
         ("flash_attention", "llama3_8b", "src/repro/kernels/flash_attention/kernel.py:70"),
@@ -881,6 +1043,12 @@ def main():
             f"{rec['argmax_agree']:.4f}; f32 logits per token {rec['f32_logits_row_rel_err']:.2e} (control "
             f"{rec['bf16_vs_f32_row_rel_err']:.2e}); decode {rec['decode_tok_s']} tok/s after the first step "
             f"({rec['decode_first_step_s']} s)")
+    small, sw = planned["small"], planned["sweeps"]
+    log(f"planned pipeline: 3x2 |dE_ED|={abs(small['energy'] - small['e_ed']):.2e}; 8x4 {planned['wall_s']:.1f} s "
+        f"(csr {record['full_size']['wall_s']:.1f} s), sweeps {[round(r['seconds'], 2) for r in sw]} s, SVD "
+        f"{[round(r['svd_seconds'], 2) for r in sw]} s, {planned['graph_replays']} graph replays, block_gemm "
+        f"{planned['variant_launches']}; replay vs eager {max(planned['replay_vs_eager']['rel_errs']):.2e}; largest "
+        f"bucket {bucket['ms']:.4f} ms (bound {bucket['bound_ms']:.4f}, bmm + index_add_ {bucket['library_ms']:.4f})")
     log(f"total {record['total_s']:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -57,17 +57,18 @@ def run_dmrg(
     """Ground-state DMRG over a bond-dimension schedule, on ``device``
     (``None`` means the CUDA card, raising when there is none).
 
-    ``algo`` is one of "list", "csr" (the block GEMM kernel on the card),
-    "csr_ref" and "list_unplanned"; ``mpo`` optimizes a pre-built operator
-    (e.g. one carried across with ``convert.mpo_from_arrays``) instead of
-    building and compressing one from ``terms``.  Arguments of the reference
-    API that are not ported yet raise ``NotImplementedError``.
+    ``algo`` is one of "list", "csr" (one block GEMM kernel launch per
+    contraction on the card), "batched" (one per shape bucket), "csr_ref"
+    and "list_unplanned"; ``jit_matvec``, ``pad_matvec``, ``svd_method``
+    and ``jit_env`` are as in ``DMRGEngine`` (the reference's defaults:
+    the planned SVD and fused environment updates on an engine).  The
+    reference's fast configuration is ``algo="batched", jit_matvec=True``.
+    ``mpo`` optimizes a pre-built operator (e.g. one carried across with
+    ``convert.mpo_from_arrays``) instead of building and compressing one
+    from ``terms``.  Arguments of the reference API that are not ported yet
+    raise ``NotImplementedError``.
     """
-    unported(
-        jit_matvec=jit_matvec, pad_matvec=pad_matvec, shard_policy=shard_policy,
-        spmd=spmd, svd_method=svd_method, jit_env=jit_env,
-        checkpoint_dir=checkpoint_dir, plan_store=plan_store,
-    )
+    unported(shard_policy=shard_policy, spmd=spmd, checkpoint_dir=checkpoint_dir, plan_store=plan_store)
     device = resolve_device(device)
     if mpo is None:
         mpo = build_mpo(space, terms, n_sites, dtype=dtype, device=device)
@@ -75,7 +76,10 @@ def run_dmrg(
             mpo = compress_mpo(mpo, cutoff=mpo_cutoff)
     states = list(initial_states) if initial_states is not None else neel_states(space, n_sites)
     mps = product_state_mps(space, states, dtype=dtype, device=device)
-    engine = DMRGEngine(mps, mpo, algo=algo, davidson_iters=davidson_iters, device=device)
+    engine = DMRGEngine(
+        mps, mpo, algo=algo, davidson_iters=davidson_iters, jit_matvec=jit_matvec, pad_matvec=pad_matvec,
+        svd_method=svd_method, jit_env=jit_env, device=device,
+    )
 
     stats: List[SweepStats] = []
     for m in bond_schedule:

@@ -6,10 +6,11 @@ Environment index convention (bra, mpo, ket):
 so that every contraction with site/MPO/bra tensors type-checks by flow.
 
 The contraction backend is pluggable by name through ``get_contractor``:
-"list" (paper Alg. 2) and "csr" (sparse-sparse, one segmented block GEMM
-per contraction on the card) run through the plan-cached
-``dist.ContractionEngine``; "csr_ref" is the csr backend on the block GEMM's
-plain PyTorch version; "list_unplanned" is the bare ``contract``.
+"list" (paper Alg. 2), "csr" (sparse-sparse, one segmented block GEMM per
+contraction on the card) and "batched" (one block GEMM per shape bucket)
+run through the plan-cached ``dist.ContractionEngine``; "csr_ref" is the
+csr backend on the block GEMM's plain PyTorch version; "list_unplanned" is
+the bare ``contract``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from ..dist.engine import ContractionEngine
 from ..tensor.blocksparse import BlockSparseTensor, contract
 from ..tensor.qn import IN, Index, OUT
 
-ALGOS = ("list", "csr", "csr_ref", "list_unplanned")
+ALGOS = ("list", "csr", "batched", "csr_ref", "list_unplanned")
 
 
 def get_contractor(algo: str, device=None) -> Callable:
@@ -33,16 +34,16 @@ def get_contractor(algo: str, device=None) -> Callable:
     contractor itself computes on whatever device its operands lie.
     """
     resolve_device(device)
-    if algo in ("list", "csr"):
+    if algo in ("list", "csr", "batched"):
         return ContractionEngine(backend=algo)
     if algo == "csr_ref":
         return ContractionEngine(backend="csr", use_kernel=False)
     if algo == "list_unplanned":
         return contract
-    if algo in ("dense", "batched", "auto", "planned", "dense_unplanned", "csr_unplanned"):
+    if algo in ("dense", "auto", "planned", "dense_unplanned", "csr_unplanned"):
         raise NotImplementedError(
-            f"algo={algo!r} is not ported yet: the batched backend is ROADMAP "
-            f"Queue 1 #5, dense/auto and the other seed algorithms are #8"
+            f"algo={algo!r} is not ported yet: dense, auto and the other seed "
+            f"algorithms are ROADMAP Queue 1 #8"
         )
     raise ValueError(f"unknown contraction algorithm: {algo}")
 

@@ -3,51 +3,60 @@
 Maintains left/right environments incrementally, optimizes each neighboring
 pair with Davidson on the two-site matvec, splits the result with the
 blockwise truncated SVD (absorbing the singular values along the sweep
-direction), and extends the environment by one site with the three chained
-contractions of ``extend_left``/``extend_right``.  Every contraction goes
-through the contractor of ``algo`` (``core/env.get_contractor``), eagerly.
+direction), and extends the environment by one site.  Every contraction
+goes through the contractor of ``algo`` (``core/env.get_contractor``).
 
-There is no degradation ladder: a failure in a contraction, a split or an
-environment update propagates, so a kernel fault surfaces where it happens.
+With an engine (every ``algo`` but "list_unplanned") the pipeline follows
+the reference's engine path:
+- ``jit_matvec``: the Davidson matvec replays one CUDA graph per padded
+  structure (``ContractionEngine.matvec_fn(jit=True)``), on operands padded
+  to powers of two (``pad_matvec``, on when ``jit_matvec`` is);
+- ``svd_method``: ``None`` (or "svd") is the planned batched SVD
+  (``dist/decomp.py``), "randomized" and "auto" its randomized variants,
+  "unplanned" the per-sector loop ``tensor.blocksparse.svd_split``;
+- ``jit_env`` (on by default): each environment update, and the
+  right-to-left rebuild at startup, is one fused update replayed as a CUDA
+  graph per padded structure (``dist/envcore.py``); off, the three-call
+  ``extend_left`` / ``extend_right``.
+A bare contractor takes the per-sector SVD and the three-call updates, and
+refuses the options it cannot honour.
+
+There is no degradation ladder: a failure in a contraction, a split, an
+environment update or a graph capture propagates, so a kernel fault
+surfaces where it happens.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
+from .. import kernels
 from ..device import resolve_device
+from ..dist.batch import pad_block_sparse, unpad_block_sparse
 from ..dist.engine import ContractionEngine
 from ..tensor.blocksparse import BlockSparseTensor, flip_flow, svd_split
 from .davidson import davidson
 from .env import extend_left, extend_right, get_contractor, left_edge, matvec_two_site, right_edge
 from .mps import MPS
 
+SVD_METHODS = (None, "unplanned", "svd", "randomized", "auto")
+
 
 def unported(**args) -> None:
     """Raise for any argument of the reference API that this port does not
     carry yet, naming the ROADMAP item that brings it."""
     where = {
-        "jit_matvec": "Queue 1 #5 (batched backend with CUDA graphs)",
-        "pad_matvec": "Queue 1 #5 (batched backend with CUDA graphs)",
         "shard_policy": "Queue 1 #12 (multi-GPU)",
         "spmd": "Queue 1 #12 (multi-GPU)",
         "plan_store": "Queue 1 #11 (persistence)",
         "checkpoint_dir": "Queue 1 #9 (robustness: checkpoints)",
         "restored_envs": "Queue 1 #9 (robustness: checkpoints)",
-        "svd_method": "Queue 1 #6 (planned batched decomposition)",
-        "jit_env": "Queue 1 #7 (environment engine)",
     }
     for name, value in args.items():
-        if name == "svd_method":
-            bad = value not in (None, "unplanned")
-        elif name == "pad_matvec":
-            bad = bool(value)
-        else:
-            bad = value not in (None, False)
-        if bad:
+        if value not in (None, False):
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet: ROADMAP {where[name]}"
             )
@@ -76,8 +85,20 @@ class SweepStats:
     davidson_exhausted: int = 0
     # contraction work this sweep: the exact block-pair flops of every
     # contraction, and the padded flops the csr backend's packed batches span
+    # (a graph replay runs contractions without the engine: with jit_matvec
+    # these count the captured structures, not the replays)
     flops_list: float = 0.0
     flops_csr: float = 0.0
+    # the engine's graph cache (dist/graphs.py): its counters' growth this
+    # sweep (graph_captures, graph_replays, evictions, buffer_growths,
+    # capture_seconds, instantiate_seconds) and its pool_bytes and
+    # buffer_bytes at the sweep's end
+    graphs: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # block GEMM launches on the card this sweep, by variant, replays included
+    block_gemm_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # the card's peak allocated bytes at the sweep's end, since the peak was
+    # last reset (torch.cuda.reset_peak_memory_stats); 0 on the CPU
+    peak_bytes: int = 0
 
 
 class DMRGEngine:
@@ -103,12 +124,11 @@ class DMRGEngine:
         restored_envs=None,
         device=None,
     ):
-        unported(
-            jit_matvec=jit_matvec, pad_matvec=pad_matvec, shard_policy=shard_policy,
-            svd_method=svd_method, jit_env=jit_env, restored_envs=restored_envs,
-        )
+        unported(shard_policy=shard_policy, restored_envs=restored_envs)
         if mps.n_sites != len(mpo):
             raise ValueError(f"MPS has {mps.n_sites} sites, MPO {len(mpo)}")
+        if svd_method not in SVD_METHODS:
+            raise ValueError(f"unknown svd_method: {svd_method!r}")
         self.device = resolve_device(device)
         for t in list(mps.tensors) + list(mpo):
             if t.device is not None and t.device.type != self.device.type:
@@ -117,12 +137,40 @@ class DMRGEngine:
         self.mpo = mpo
         self.algo = algo
         self.contract_fn = engine if engine is not None else get_contractor(algo, self.device)
+        self.jit_matvec = jit_matvec
+        # power-of-two pad the Davidson operands so the graphed matvec meets
+        # few structures; on iff jitting unless asked
+        self.pad_matvec = jit_matvec if pad_matvec is None else pad_matvec
+        # the MPO is fixed for the run: each site is padded once
+        self._mpo_padded: List[Optional[BlockSparseTensor]] = [None] * len(mpo)
+        if isinstance(self.contract_fn, ContractionEngine):
+            self.svd_planned = svd_method != "unplanned"
+            self.contract_fn.decomp.method = svd_method if svd_method in ("svd", "randomized", "auto") else "svd"
+            self.jit_env = True if jit_env is None else bool(jit_env)
+        else:
+            backend = f"algo={algo!r}" if engine is None else f"engine={type(engine).__name__}"
+            for name, bad in (("jit_matvec", jit_matvec), ("svd_method", svd_method not in (None, "unplanned")),
+                              ("jit_env", jit_env)):
+                if bad:
+                    raise ValueError(
+                        f"{name} requires a ContractionEngine backend, not {backend}; bare "
+                        f"contractors use the per-sector svd_split and extend_left/extend_right"
+                    )
+            self.svd_planned = False
+            self.jit_env = False
         self.davidson_iters = davidson_iters
         self.seed = seed
         self.n = mps.n_sites
         self._init_envs()
 
+    @property
+    def _engine(self) -> Optional[ContractionEngine]:
+        return self.contract_fn if isinstance(self.contract_fn, ContractionEngine) else None
+
     def _init_envs(self):
+        """Edges, then the right environments down to site 1 (the first pair
+        needs ``right_envs[1]``): one right-to-left pass, fused updates when
+        ``jit_env`` is on."""
         n = self.n
         T, W = self.mps.tensors, self.mpo
         self.left_envs: List[Optional[BlockSparseTensor]] = [None] * (n + 1)
@@ -134,34 +182,60 @@ class DMRGEngine:
 
     def _extend_left_env(self, j: int) -> BlockSparseTensor:
         """A_{j+1} from A_j: absorb site j into the left environment."""
-        return extend_left(self.left_envs[j], self.mps.tensors[j], self.mpo[j], self.contract_fn)
+        A, T, W = self.left_envs[j], self.mps.tensors[j], self.mpo[j]
+        if self.jit_env:
+            return self.contract_fn.env_update_left(A, T, W, mpo_padded=self._padded_mpo(j))
+        return extend_left(A, T, W, self.contract_fn)
 
     def _extend_right_env(self, j: int) -> BlockSparseTensor:
         """B_j from B_{j+1}: absorb site j+1 into the right environment."""
-        return extend_right(self.right_envs[j + 1], self.mps.tensors[j + 1], self.mpo[j + 1], self.contract_fn)
+        B, T, W = self.right_envs[j + 1], self.mps.tensors[j + 1], self.mpo[j + 1]
+        if self.jit_env:
+            return self.contract_fn.env_update_right(B, T, W, mpo_padded=self._padded_mpo(j + 1))
+        return extend_right(B, T, W, self.contract_fn)
+
+    def _padded_mpo(self, j: int) -> BlockSparseTensor:
+        if self._mpo_padded[j] is None:
+            self._mpo_padded[j] = pad_block_sparse(self.mpo[j])
+        return self._mpo_padded[j]
 
     def _optimize_pair(self, j: int, max_bond: int, cutoff: float, absorb: str):
         T, W = self.mps.tensors, self.mpo
         A, B = self.left_envs[j], self.right_envs[j + 1]
         theta = self.contract_fn(T[j], T[j + 1], ((2,), (0,)))
-        if isinstance(self.contract_fn, ContractionEngine):
-            mv = self.contract_fn.matvec_fn(A, W[j], W[j + 1], B)
+        engine = self._engine
+        pad = self.pad_matvec and engine is not None
+        if pad:
+            # zero padding is exact (the padded operator entries are zero)
+            # and quantizes the structure the graphed matvec is keyed by
+            orig_indices = theta.indices
+            A, B, theta = pad_block_sparse(A), pad_block_sparse(B), pad_block_sparse(theta)
+            Wj, Wj1 = self._padded_mpo(j), self._padded_mpo(j + 1)
+        else:
+            Wj, Wj1 = W[j], W[j + 1]
+        if engine is not None:
+            mv = engine.matvec_fn(A, Wj, Wj1, B, jit=self.jit_matvec)
         else:
             def mv(x):
-                return matvec_two_site(A, W[j], W[j + 1], B, x, self.contract_fn)
+                return matvec_two_site(A, Wj, Wj1, B, x, self.contract_fn)
 
         lam, theta, dinfo = davidson(mv, theta, n_iter=self.davidson_iters, seed=self.seed + j)
+        if pad:
+            theta = unpad_block_sparse(theta, orig_indices)
         t_svd = time.perf_counter()
-        U, V, _, err = svd_split(theta, 2, max_bond=max_bond, cutoff=cutoff, absorb=absorb)
+        split = engine.svd_split if self.svd_planned else svd_split
+        U, V, _, err = split(theta, 2, max_bond=max_bond, cutoff=cutoff, absorb=absorb)
         svd_dt = time.perf_counter() - t_svd
         T[j] = flip_flow(U, 2)
         T[j + 1] = flip_flow(V, 0)
         return lam, err, svd_dt, dinfo
 
+    def _graph_stats(self) -> Dict[str, float]:
+        return self._engine.graphs.stats() if self._engine is not None else {}
+
     def _flop_counters(self):
-        if isinstance(self.contract_fn, ContractionEngine):
-            return self.contract_fn.flops_list, self.contract_fn.backend_flops["csr"]
-        return 0.0, 0.0
+        engine = self._engine
+        return (engine.flops_list, engine.backend_flops["csr"]) if engine is not None else (0.0, 0.0)
 
     def sweep(self, max_bond: int, cutoff: float = 1e-12) -> SweepStats:
         """One full left-to-right + right-to-left sweep; returns stats."""
@@ -171,6 +245,8 @@ class DMRGEngine:
         max_err = svd_secs = env_secs = 0.0
         dav = dict(solves=0, converged=0, iterations=0, restarts=0, exhausted=0)
         flops0 = self._flop_counters()
+        graphs0 = self._graph_stats()
+        launches0 = dict(kernels.VARIANT_LAUNCHES["block_gemm"])
         t0 = time.perf_counter()
 
         def _site(j: int, absorb: str):
@@ -201,6 +277,7 @@ class DMRGEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # the sweep's time includes its last kernels
         flops1 = self._flop_counters()
+        graphs1 = self._graph_stats()
         return SweepStats(
             energy=energies[-1],
             max_bond=self.mps.max_bond(),
@@ -217,4 +294,9 @@ class DMRGEngine:
             davidson_exhausted=dav["exhausted"],
             flops_list=flops1[0] - flops0[0],
             flops_csr=flops1[1] - flops0[1],
+            graphs={k: v if k in ("pool_bytes", "buffer_bytes", "graphs") else v - graphs0[k] for k, v in graphs1.items()},
+            block_gemm_launches={
+                k: n - launches0[k] for k, n in kernels.VARIANT_LAUNCHES["block_gemm"].items()
+            },
+            peak_bytes=torch.cuda.max_memory_allocated(self.device) if self.device.type == "cuda" else 0,
         )

@@ -1,0 +1,174 @@
+"""Batched block-contraction execution and power-of-two shape bucketing.
+
+Two pieces of the same idea — make the block structure *regular* so the card
+sees few large launches instead of many small ones (Menczer et al.,
+arXiv:2407.07411):
+
+1. ``execute_batched`` runs a ``ContractionPlan``'s shape-bucket table
+   (``plan.batched``): per bucket one stacked block GEMM over all
+   same-(M, K, N) block pairs with a segment sum into the bucket's output
+   slots, through ``kernels/block_gemm/ops.block_sparse_matmul`` (the
+   hand-written kernel on a CUDA tensor, its plain version on the CPU).  A
+   bucket has no padding inside it, so the launch passes no extents and
+   the bucket's work list is built once and cached on it.
+
+2. ``pad_block_sparse`` rounds every sector dimension up to a power of two.
+   Zero padding is exact for contractions — the padded entries of every
+   operand are zero, so the padded matvec equals the padding of the true
+   matvec — and it quantizes the block structure, so a CUDA graph captured
+   for one padded structure (``dist/graphs.py``) is replayed across the
+   bonds and sweeps that share it.
+
+Equality: buckets execute the exact per-pair products (no padding of M, K,
+N), so ``execute_batched`` equals the list algorithm block for block up to
+the order of accumulation (<=1e-13 on random f64 tensors,
+``tests/test_torch_batch.py``).  Nothing here syncs with the host or copies
+from it once the layout's tables are on the card
+(``BatchedLayout.device_tables``, the buckets' work lists), so the bucket
+loop can be captured into a CUDA graph.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.block_gemm.ops import block_sparse_matmul
+from ..tensor.blocksparse import BlockKey, BlockSparseTensor
+from ..tensor.qn import Index
+from .plan import ContractionPlan, ShapeBucket, bucket_dim
+
+BlockMats = Dict[BlockKey, torch.Tensor]
+
+
+def execute_pairs(plan: ContractionPlan, a_blocks: Dict, b_blocks: Dict) -> Dict:
+    """Execute a plan's pair table as one ``tensordot`` per pair, into a dict.
+
+    The list algorithm's numeric half, shared by the engine's "list"
+    backend and the fused environment core (``dist/envcore.py``), so the
+    order of accumulation cannot differ between them.
+    """
+    dims = (list(plan.ax_a), list(plan.ax_b))
+    out: Dict = {}
+    for ka, kb, kc in plan.pairs:
+        piece = torch.tensordot(a_blocks[ka], b_blocks[kb], dims=dims)
+        out[kc] = out[kc] + piece if kc in out else piece
+    return out
+
+
+def _matricize(t, first: Tuple[int, ...], second: Tuple[int, ...]) -> BlockMats:
+    blocks = t.blocks if isinstance(t, BlockSparseTensor) else t
+    perm = first + second
+    out: BlockMats = {}
+    for key, blk in blocks.items():
+        r = 1
+        for i in first:
+            r *= blk.shape[i]
+        out[key] = blk.permute(perm).reshape(r, -1)
+    return out
+
+
+def matricize_lhs(t, keep: Tuple[int, ...], ax: Tuple[int, ...]) -> BlockMats:
+    """2-D (kept rows, contracted cols) form of every block of ``t``.
+
+    Depends only on the contraction's static axes, not on the partner's
+    block structure, so for the fixed Davidson operands (A, W_j, W_{j+1}, B)
+    it is computed once per solve, not inside every matvec.  ``t`` may be a
+    ``BlockSparseTensor`` or a bare key -> tensor dict.
+    """
+    return _matricize(t, tuple(keep), tuple(ax))
+
+
+def matricize_rhs(t, keep: Tuple[int, ...], ax: Tuple[int, ...]) -> BlockMats:
+    """2-D (contracted rows, kept cols) form of every block of ``t``."""
+    return _matricize(t, tuple(ax), tuple(keep))
+
+
+def bucket_operands(bucket: ShapeBucket, a_mats: BlockMats, b_mats: BlockMats):
+    """The block GEMM's ``(lhs [P, m, k], rhs [P, k, n])`` of one bucket: its
+    blocks stacked in pair order (``li``, ``ri``), a block that serves
+    several pairs once per pair — one copy per operand, where stacking the
+    unique blocks and gathering them would be two."""
+    lhs = torch.stack([a_mats[bucket.a_keys[i]] for i in bucket.li])
+    rhs = torch.stack([b_mats[bucket.b_keys[i]] for i in bucket.ri])
+    return lhs, rhs
+
+
+def execute_batched_blocks(
+    plan: ContractionPlan, a_mats: BlockMats, b_mats: BlockMats, *, use_kernel: bool = True
+) -> Dict[BlockKey, torch.Tensor]:
+    """The bucket loop on pre-matricized blocks, returning output blocks.
+
+    Each bucket is one ``block_sparse_matmul`` launch with the bucket's
+    cached work list; buckets that feed the same output block add up here.
+    """
+    layout = plan.batched
+    device = next(iter(a_mats.values())).device
+    out_acc: Dict[BlockKey, torch.Tensor] = {}
+    for bucket, oi in zip(layout.buckets, layout.device_tables(device)):
+        lhs, rhs = bucket_operands(bucket, a_mats, b_mats)
+        out = block_sparse_matmul(lhs, rhs, oi, len(bucket.out_keys), work=bucket.work, use_kernel=use_kernel)
+        for slot, kc in enumerate(bucket.out_keys):
+            prev = out_acc.get(kc)
+            out_acc[kc] = out[slot] if prev is None else prev + out[slot]
+    return {kc: mat.reshape(plan.out_block_shape(kc)) for kc, mat in out_acc.items()}
+
+
+def execute_batched(
+    plan: ContractionPlan,
+    a: BlockSparseTensor,
+    b: BlockSparseTensor,
+    *,
+    a_mats: Optional[BlockMats] = None,
+    b_mats: Optional[BlockMats] = None,
+    use_kernel: bool = True,
+) -> BlockSparseTensor:
+    """Execute ``plan`` bucket by bucket as stacked block GEMMs.
+
+    ``a_mats`` / ``b_mats`` are optional pre-matricized operand blocks
+    (``matricize_lhs`` / ``matricize_rhs``) for operands fixed across many
+    calls; live operands are matricized here.
+    """
+    if not plan.pairs:
+        return BlockSparseTensor(plan.out_indices, {}, plan.out_charge)
+    if a_mats is None:
+        a_mats = matricize_lhs(a, plan.keep_a, plan.ax_a)
+    if b_mats is None:
+        b_mats = matricize_rhs(b, plan.keep_b, plan.ax_b)
+    blocks = execute_batched_blocks(plan, a_mats, b_mats, use_kernel=use_kernel)
+    return BlockSparseTensor(plan.out_indices, blocks, plan.out_charge)
+
+
+# --------------------------------------------------------- power-of-two pads
+def pad_index(ix: Index) -> Index:
+    """Same charges and flow, sector dims rounded up to powers of two."""
+    return Index(tuple((q, bucket_dim(d)) for q, d in ix.sectors), ix.flow, ix.name)
+
+
+def pad_block_sparse(t: BlockSparseTensor) -> BlockSparseTensor:
+    """Zero-pad every block so that all sector dims are powers of two.
+
+    Same charges, flows and block keys; only the degeneracies grow.  Both
+    members of every contracted index pair pad identically, and the padded
+    entries are zero, so any contraction of padded tensors equals the
+    padding of the unpadded contraction exactly.
+    """
+    out = BlockSparseTensor(tuple(pad_index(ix) for ix in t.indices), {}, t.charge)
+    for k, blk in t.blocks.items():
+        tgt = out.block_shape(k)
+        if tgt == tuple(blk.shape):
+            out.blocks[k] = blk
+        else:
+            widths = [w for ts, s in zip(reversed(tgt), reversed(blk.shape)) for w in (0, ts - s)]
+            out.blocks[k] = F.pad(blk, widths)
+    return out
+
+
+def unpad_block_sparse(t: BlockSparseTensor, indices: Tuple[Index, ...]) -> BlockSparseTensor:
+    """Slice a padded tensor back to the given (original) index structure."""
+    out = BlockSparseTensor(indices, {}, t.charge)
+    for k, blk in t.blocks.items():
+        tgt = out.block_shape(k)
+        out.blocks[k] = blk if tgt == tuple(blk.shape) else blk[tuple(slice(0, s) for s in tgt)]
+    return out

@@ -1,14 +1,27 @@
-"""Contraction plans: the static, cacheable half of a block-sparse contraction.
+"""Contraction, decomposition and environment plans: the static, cacheable half.
 
-Everything the list and csr algorithms derive from quantum numbers — the
-(lhs, rhs) -> out block-pair table, output indices and charge, output block
-shapes, and the csr backend's packed-batch layout — is a pure function of
-``(a.indices, a.charge, a block keys, b.indices, b.charge, b block keys,
-axes)``.  A ``ContractionPlan`` computes it once and a ``PlanCache`` keyed by
-that structural signature reuses it for the whole sweep (the analogue of
-CTF's one-time output-sparsity precomputation, paper Sec. IV-B).  Plans hold
-Python/numpy metadata; the csr layout also memoizes its index tables on each
-device it has run on.
+Everything the list, csr and batched backends derive from quantum numbers —
+the (lhs, rhs) -> out block-pair table, output indices and charge, output
+block shapes, the csr backend's packed-batch layout and the batched
+backend's shape buckets — is a pure function of ``(a.indices, a.charge, a
+block keys, b.indices, b.charge, b block keys, axes)``.  A
+``ContractionPlan`` computes it once and a ``PlanCache`` keyed by that
+structural signature reuses it for the whole sweep (the analogue of CTF's
+one-time output-sparsity precomputation, paper Sec. IV-B).
+
+The same split applies to the blockwise truncated SVD (paper Fig. 1e): a
+``DecompositionPlan`` precomputes sector grouping, row/column layouts and
+the gather tables that assemble each power-of-two padded sector-matrix
+stack, cached in a ``DecompPlanCache`` by ``decomp_signature``; execution
+lives in ``dist/decomp.py``.  And to the environment stage (paper Fig. 1d):
+an ``EnvironmentPlan`` chains the three per-site contraction plans of
+``extend_left`` / ``extend_right``, cached in an ``EnvPlanCache`` by the
+composite ``env_signature``; execution lives in ``dist/envcore.py``.
+
+Plans hold Python/numpy metadata.  The csr and batched layouts, and the
+decomposition buckets, also memoize their index tables on each device they
+have run on, so a CUDA graph captured over them reads tables uploaded
+before the capture.
 """
 from __future__ import annotations
 
@@ -20,9 +33,9 @@ import numpy as np
 import torch
 
 from ..kernels.block_gemm.ops import segments
-from ..kernels.block_gemm.work import WorkList, work_list
+from ..kernels.block_gemm.work import WorkList, shared_work_list, work_list
 from ..tensor.blocksparse import BlockKey, BlockSparseTensor
-from ..tensor.qn import Charge, Index, qadd
+from ..tensor.qn import Charge, Index, qadd, qscale, qzero
 
 PlanSignature = Tuple
 Axes = Tuple[Tuple[int, ...], Tuple[int, ...]]
@@ -46,6 +59,22 @@ def _prod(xs) -> int:
     for x in xs:
         out *= int(x)
     return out
+
+
+def bucket_dim(d: int) -> int:
+    """Round a dimension up to the next power of two (shape-bucket size)."""
+    p = 1
+    while p < d:
+        p *= 2
+    return p
+
+
+def svd_flop_estimate(rp: int, cp: int) -> float:
+    """~LAPACK gesdd flop estimate for one [rp, cp] economy SVD: the
+    decomposition cost model (``DecompositionPlan.svd_flops``, the
+    randomized-vs-exact choice of ``dist/decomp.py``)."""
+    kp = min(rp, cp)
+    return 8.0 * rp * cp * kp + 9.0 * kp**3
 
 
 @dataclasses.dataclass
@@ -88,6 +117,68 @@ class CsrLayout:
 
 
 @dataclasses.dataclass
+class ShapeBucket:
+    """All block pairs of a contraction sharing one matricized (M, K, N).
+
+    Every lhs block in the bucket matricizes to exactly (m, k) and every rhs
+    block to (k, n) — no padding — so the bucket executes as ONE stacked
+    block GEMM with a segment sum over its output slots (the fused
+    same-shape batches of Menczer et al., arXiv:2407.07411).
+    """
+
+    m: int
+    k: int
+    n: int
+    a_keys: Tuple[BlockKey, ...]          # unique participating lhs keys
+    b_keys: Tuple[BlockKey, ...]          # unique participating rhs keys
+    li: np.ndarray                        # [P] lhs slot per pair
+    ri: np.ndarray                        # [P] rhs slot per pair
+    oi: np.ndarray                        # [P] output slot per pair, ascending
+    out_keys: Tuple[BlockKey, ...]        # bucket-local output key per slot
+    li_identity: bool = False             # li == arange(P): gather is a no-op
+    ri_identity: bool = False
+    _work: Optional[WorkList] = None
+
+    @property
+    def work(self) -> WorkList:
+        """The block GEMM kernel's work list of this bucket, built once (no
+        extents: a bucket has no padding inside it) and shared with every
+        bucket of the same segments and shape."""
+        if self._work is None:
+            self._work = shared_work_list(segments(self.oi, len(self.out_keys)), self.m, self.k, self.n)
+        return self._work
+
+
+@dataclasses.dataclass
+class BatchedLayout:
+    """Shape-group table: the pair list bucketed by matricized (M, K, N)."""
+
+    buckets: Tuple[ShapeBucket, ...]
+    num_unique: int                       # sum over buckets of |a_keys|+|b_keys|
+    num_out_slots: int                    # sum over buckets of |out_keys|
+    dev_idx: Dict = dataclasses.field(default_factory=dict)
+    _host: Optional[np.ndarray] = None    # every bucket's oi end to end, as uploaded
+
+    @property
+    def num_buckets(self) -> int:
+        return len(self.buckets)
+
+    def device_tables(self, device: torch.device):
+        """Per bucket ``oi`` as an int32 tensor on ``device`` (the output
+        slots the block GEMM's plain version scatters to; the kernel reads
+        the bucket's work list), uploaded once per device in one copy
+        without a host sync (the counterpart of the reference's per-mesh
+        ``memo_dev_idx``)."""
+        tables = self.dev_idx.get(device)
+        if tables is None:
+            if self._host is None:
+                self._host = np.concatenate([b.oi for b in self.buckets])
+            flat = torch.from_numpy(self._host).to(device, non_blocking=True)
+            tables = self.dev_idx[device] = tuple(flat.split([len(b.oi) for b in self.buckets]))
+        return tables
+
+
+@dataclasses.dataclass
 class ContractionPlan:
     """Precomputed symbolic structure of one block-sparse contraction."""
 
@@ -105,6 +196,7 @@ class ContractionPlan:
     out_keys: Tuple[BlockKey, ...]        # unique output keys, first-seen order
     flops_list: float                     # sum over pairs of 2*M*K*N
     _csr: Optional[CsrLayout] = None
+    _batched: Optional[BatchedLayout] = None
 
     @staticmethod
     def build(a: BlockSparseTensor, b: BlockSparseTensor, axes: Axes) -> "ContractionPlan":
@@ -204,6 +296,55 @@ class ContractionPlan:
             out_rc=out_rc,
         )
 
+    def _build_batched(self) -> BatchedLayout:
+        """Bucket the pair list by matricized (M, K, N) shape.
+
+        Unlike the csr layout there is NO padding: pairs share a bucket only
+        when their matricized shapes are exactly equal, so each bucket is one
+        regular [P, M, K] x [P, K, N] batched GEMM whose products segment-sum
+        into the bucket's output slots.  Different buckets may feed the same
+        output block (same kept sectors, different contracted sector dims);
+        the executor accumulates across buckets.
+        """
+        a_indices, _, _, b_indices = self.signature[:4]
+        groups: Dict[Tuple[int, int, int], List[Tuple[BlockKey, BlockKey, BlockKey]]] = {}
+        for ka, kb, kc in self.pairs:
+            m, k = self._mshape(a_indices, ka, self.keep_a, self.ax_a)
+            n = self._mshape(b_indices, kb, self.keep_b, self.ax_b)[0]
+            groups.setdefault((m, k, n), []).append((ka, kb, kc))
+
+        buckets: List[ShapeBucket] = []
+        num_unique = num_out_slots = 0
+        for (m, k, n), prs in sorted(groups.items()):
+            prs = sorted(prs, key=lambda t: t[2])  # -> oi ascending
+            a_pos: Dict[BlockKey, int] = {}
+            b_pos: Dict[BlockKey, int] = {}
+            o_pos: Dict[BlockKey, int] = {}
+            li, ri, oi = [], [], []
+            for ka, kb, kc in prs:
+                li.append(a_pos.setdefault(ka, len(a_pos)))
+                ri.append(b_pos.setdefault(kb, len(b_pos)))
+                oi.append(o_pos.setdefault(kc, len(o_pos)))
+            li, ri = np.array(li, np.int32), np.array(ri, np.int32)
+            p = len(prs)
+            buckets.append(ShapeBucket(
+                m=m, k=k, n=n,
+                a_keys=tuple(a_pos), b_keys=tuple(b_pos),
+                li=li, ri=ri, oi=np.array(oi, np.int32),
+                out_keys=tuple(o_pos),
+                li_identity=len(a_pos) == p and bool((li == np.arange(p)).all()),
+                ri_identity=len(b_pos) == p and bool((ri == np.arange(p)).all()),
+            ))
+            num_unique += len(a_pos) + len(b_pos)
+            num_out_slots += len(o_pos)
+        return BatchedLayout(buckets=tuple(buckets), num_unique=num_unique, num_out_slots=num_out_slots)
+
+    @property
+    def batched(self) -> BatchedLayout:
+        if self._batched is None:
+            self._batched = self._build_batched()
+        return self._batched
+
     @property
     def csr(self) -> CsrLayout:
         if not self.pairs:
@@ -228,29 +369,298 @@ class ContractionPlan:
         return tuple(ix.sector_dim(s) for ix, s in zip(self.out_indices, kc))
 
 
-class PlanCache:
-    """LRU cache of ContractionPlans keyed by structural signature.
 
-    ``hits``/``misses``/``evictions`` count lookups and capacity evictions.
+
+# ------------------------------------------------------------ decomposition
+def decomp_signature(theta: BlockSparseTensor, n_row_modes: int) -> PlanSignature:
+    """Structural signature of a blockwise SVD split: everything a
+    ``DecompositionPlan`` precomputes is a pure function of it."""
+    return (theta.indices, theta.charge, tuple(sorted(theta.blocks)), n_row_modes)
+
+
+@dataclasses.dataclass
+class SectorSplit:
+    """Row/column layout of one fused-charge sector of the matricized theta.
+
+    The sector matrix is ``[R, C]``: rows are the concatenation (in
+    ``row_keys`` order) of the matricized row-mode blocks, columns likewise
+    for the column modes.
+    """
+
+    q: Charge
+    row_keys: Tuple[BlockKey, ...]       # sorted row-part keys
+    col_keys: Tuple[BlockKey, ...]       # sorted col-part keys
+    rdims: Tuple[int, ...]               # matricized row dim per row key
+    cdims: Tuple[int, ...]               # matricized col dim per col key
+    roffs: Tuple[int, ...]               # row offset per row key
+    coffs: Tuple[int, ...]               # col offset per col key
+    R: int                               # total (unpadded) rows
+    C: int                               # total (unpadded) cols
+    bucket: int = -1                     # index into plan.buckets
+    slot: int = -1                       # stack position within the bucket
+
+    @property
+    def K(self) -> int:
+        """True rank bound min(R, C): number of real singular values."""
+        return min(self.R, self.C)
+
+
+@dataclasses.dataclass
+class SvdBucket:
+    """All sectors sharing one padded matrix shape (Rp, Cp).
+
+    The bucket executes as ONE batched ``torch.linalg.svd`` over the stacked
+    ``[S, Rp, Cp]`` sector matrices, assembled with a single gather from the
+    flattened theta blocks (``gather`` indexes into the flat concatenation;
+    the one-past-the-end slot reads an appended zero, so structural zeros
+    and padding both land there).
+    """
+
+    rp: int                              # padded rows (bucket_dim(R))
+    cp: int                              # padded cols (bucket_dim(C))
+    sectors: Tuple[int, ...]             # indices into plan.sectors, stack order
+    gather: np.ndarray                   # [S, rp, cp] int32 into the flat theta
+    k_true: np.ndarray                   # [S] int32: min(R, C) per sector
+    rmax: int = 0                        # largest true R and C of its sectors
+    cmax: int = 0
+    dev: Dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def kp(self) -> int:
+        """Padded singular-value count min(rp, cp) per stacked sector."""
+        return min(self.rp, self.cp)
+
+    def device_tables(self, device: torch.device):
+        """(gather [S*rmax*cmax] int32, real-value mask [S, min(rmax, cmax)])
+        on ``device``, uploaded once per device without a host sync.  The
+        gather is trimmed to the bucket's largest true sector: rows and
+        columns beyond it are padding in every sector, and an SVD does not
+        need them."""
+        t = self.dev.get(device)
+        if t is None:
+            trimmed = np.ascontiguousarray(self.gather[:, :self.rmax, :self.cmax])
+            gather = torch.from_numpy(trimmed).to(device, non_blocking=True).view(-1)
+            k_true = torch.from_numpy(self.k_true).to(device, non_blocking=True)
+            kmax = min(self.rmax, self.cmax)
+            t = self.dev[device] = (gather, torch.arange(kmax, device=device)[None, :] < k_true[:, None])
+        return t
+
+
+@dataclasses.dataclass
+class DecompositionPlan:
+    """Precomputed symbolic structure of one blockwise truncated SVD,
+    executed by ``dist.decomp.DecompositionEngine``."""
+
+    signature: PlanSignature
+    n_row_modes: int
+    row_ix: Tuple[Index, ...]
+    col_ix: Tuple[Index, ...]
+    block_order: Tuple[BlockKey, ...]    # canonical (sorted) flattening order
+    block_offsets: Tuple[int, ...]       # flat offset per block, same order
+    nnz: int                             # total elements across blocks
+    sectors: Tuple[SectorSplit, ...]     # sorted by fused charge
+    buckets: Tuple[SvdBucket, ...]
+    svd_flops: float                     # full-SVD flop estimate over buckets
+
+    @staticmethod
+    def build(theta: BlockSparseTensor, n_row_modes: int) -> "DecompositionPlan":
+        if not theta.blocks:
+            raise ValueError("svd_split of a tensor with no blocks")
+        indices = theta.indices
+        row_ix, col_ix = indices[:n_row_modes], indices[n_row_modes:]
+
+        block_order = tuple(sorted(theta.blocks))
+        offsets: List[int] = []
+        acc = 0
+        for k in block_order:
+            offsets.append(acc)
+            acc += _prod(indices[i].sector_dim(s) for i, s in enumerate(k))
+        nnz = acc
+
+        # group block keys by fused row charge (flow-weighted)
+        groups: Dict[Charge, List[BlockKey]] = {}
+        for k in block_order:
+            q = qzero(indices[0].nq)
+            for ix, s in zip(row_ix, k[:n_row_modes]):
+                q = qadd(q, qscale(ix.charge(s), ix.flow))
+            groups.setdefault(q, []).append(k)
+
+        def layout(keys, ixs):
+            dims = tuple(_prod([ix.sector_dim(s) for ix, s in zip(ixs, key)] or [1]) for key in keys)
+            offs = tuple(int(o) for o in np.concatenate([[0], np.cumsum(dims)[:-1]]))
+            return dims, offs, sum(dims)
+
+        sectors: List[SectorSplit] = []
+        sector_keys: List[List[BlockKey]] = []
+        for q, keys in sorted(groups.items()):
+            row_keys = tuple(sorted({k[:n_row_modes] for k in keys}))
+            col_keys = tuple(sorted({k[n_row_modes:] for k in keys}))
+            rdims, roffs, R = layout(row_keys, row_ix)
+            cdims, coffs, C = layout(col_keys, col_ix)
+            sectors.append(SectorSplit(q, row_keys, col_keys, rdims, cdims, roffs, coffs, R, C))
+            sector_keys.append(keys)
+
+        # bucket sectors by padded (Rp, Cp); one gather table per bucket
+        by_shape: Dict[Tuple[int, int], List[int]] = {}
+        for si, sec in enumerate(sectors):
+            by_shape.setdefault((bucket_dim(sec.R), bucket_dim(sec.C)), []).append(si)
+        buckets: List[SvdBucket] = []
+        svd_flops = 0.0
+        key_offset = dict(zip(block_order, offsets))
+        for (rp, cp), sec_ids in sorted(by_shape.items()):
+            gather = np.full((len(sec_ids), rp, cp), nnz, np.int32)
+            for slot, si in enumerate(sec_ids):
+                sec = sectors[si]
+                sec.bucket, sec.slot = len(buckets), slot
+                rpos = {rk: i for i, rk in enumerate(sec.row_keys)}
+                cpos = {ck: i for i, ck in enumerate(sec.col_keys)}
+                for k in sector_keys[si]:
+                    ri, ci = rpos[k[:n_row_modes]], cpos[k[n_row_modes:]]
+                    rd, cd = sec.rdims[ri], sec.cdims[ci]
+                    # a block's elements are in (row modes, col modes) C
+                    # order, so the flat block reshapes to [rd, cd] directly
+                    gather[slot, sec.roffs[ri]:sec.roffs[ri] + rd, sec.coffs[ci]:sec.coffs[ci] + cd] = (
+                        key_offset[k] + np.arange(rd * cd, dtype=np.int32)
+                    ).reshape(rd, cd)
+            svd_flops += len(sec_ids) * svd_flop_estimate(rp, cp)
+            buckets.append(SvdBucket(
+                rp=rp, cp=cp, sectors=tuple(sec_ids), gather=gather,
+                k_true=np.array([sectors[si].K for si in sec_ids], np.int32),
+                rmax=max(sectors[si].R for si in sec_ids), cmax=max(sectors[si].C for si in sec_ids),
+            ))
+
+        return DecompositionPlan(
+            signature=decomp_signature(theta, n_row_modes),
+            n_row_modes=n_row_modes,
+            row_ix=tuple(row_ix),
+            col_ix=tuple(col_ix),
+            block_order=block_order,
+            block_offsets=tuple(offsets),
+            nnz=nnz,
+            sectors=tuple(sectors),
+            buckets=tuple(buckets),
+            svd_flops=svd_flops,
+        )
+
+    @property
+    def num_sectors(self) -> int:
+        return len(self.sectors)
+
+    @property
+    def num_buckets(self) -> int:
+        return len(self.buckets)
+
+
+# ------------------------------------------------------------- environments
+def env_signature(env: BlockSparseTensor, site: BlockSparseTensor, mpo: BlockSparseTensor, side: str) -> PlanSignature:
+    """Composite structural signature of one environment update: the (env,
+    site, MPO) triple's structure plus the sweep direction."""
+    return (
+        "env", side,
+        env.indices, env.charge, tuple(sorted(env.blocks)),
+        site.indices, site.charge, tuple(sorted(site.blocks)),
+        mpo.indices, mpo.charge, tuple(sorted(mpo.blocks)),
+    )
+
+
+def _probe(indices: Tuple[Index, ...], charge: Charge, keys) -> BlockSparseTensor:
+    """Structure-only tensor (blocks map to None): plan building and
+    signatures read block *keys* only, never block values."""
+    return BlockSparseTensor(indices, dict.fromkeys(keys), charge)
+
+
+def _conj_probe(t: BlockSparseTensor) -> BlockSparseTensor:
+    """Structural image of ``t.conj()``: dual indices, negated charge, same
+    block keys."""
+    return _probe(tuple(ix.dual() for ix in t.indices), qscale(t.charge, -1), t.blocks)
+
+
+# the three chained contractions of extend_left / extend_right (core/env.py)
+# as static axes per step, plus the final transpose
+_ENV_LEFT_AXES = (((2,), (0,)), ((1, 2), (0, 2)), ((0, 1), (0, 2)))
+_ENV_LEFT_PERM = (0, 2, 1)
+_ENV_RIGHT_AXES = (((2,), (2,)), ((3, 1), (3, 2)), ((1, 3), (2, 1)))
+_ENV_RIGHT_PERM = (2, 1, 0)
+
+
+@dataclasses.dataclass
+class EnvironmentPlan:
+    """Precomputed symbolic structure of one fused env update: the three
+    step plans of ``extend_left`` / ``extend_right`` (fetched through a
+    contraction ``PlanCache``) and the final transpose, every intermediate
+    block structure resolved ahead of time.  Executed by
+    ``dist.envcore.EnvironmentEngine``."""
+
+    signature: PlanSignature
+    side: str                             # "left" | "right"
+    steps: Tuple[ContractionPlan, ContractionPlan, ContractionPlan]
+    perm: Tuple[int, ...]                 # final transpose of step-3 output
+    env_keys: Tuple[BlockKey, ...]        # sorted operand keys, core arg order
+    site_keys: Tuple[BlockKey, ...]
+    mpo_keys: Tuple[BlockKey, ...]
+    out_indices: Tuple[Index, ...]        # post-transpose env structure
+    out_charge: Charge
+    out_keys: Tuple[BlockKey, ...]        # post-transpose, sorted
+    pre_out_keys: Tuple[BlockKey, ...]    # step-3 key per out_keys entry
+    flops: float                          # sum over steps of flops_list
+
+    @staticmethod
+    def build(env, site, mpo, side: str, cache: "PlanCache") -> "EnvironmentPlan":
+        if side not in ("left", "right"):
+            raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+        bra = _conj_probe(site)
+        if side == "left":
+            (ax1, ax2, ax3), perm = _ENV_LEFT_AXES, _ENV_LEFT_PERM
+            p1 = cache.get(env, site, ax1)
+            p2 = cache.get(_probe(p1.out_indices, p1.out_charge, p1.out_keys), mpo, ax2)
+            p3 = cache.get(bra, _probe(p2.out_indices, p2.out_charge, p2.out_keys), ax3)
+        else:
+            (ax1, ax2, ax3), perm = _ENV_RIGHT_AXES, _ENV_RIGHT_PERM
+            p1 = cache.get(site, env, ax1)
+            p2 = cache.get(_probe(p1.out_indices, p1.out_charge, p1.out_keys), mpo, ax2)
+            p3 = cache.get(_probe(p2.out_indices, p2.out_charge, p2.out_keys), bra, ax3)
+        post_to_pre = {tuple(k[p] for p in perm): k for k in p3.out_keys}
+        out_keys = tuple(sorted(post_to_pre))
+        return EnvironmentPlan(
+            signature=env_signature(env, site, mpo, side),
+            side=side,
+            steps=(p1, p2, p3),
+            perm=perm,
+            env_keys=tuple(sorted(env.blocks)),
+            site_keys=tuple(sorted(site.blocks)),
+            mpo_keys=tuple(sorted(mpo.blocks)),
+            out_indices=tuple(p3.out_indices[p] for p in perm),
+            out_charge=p3.out_charge,
+            out_keys=out_keys,
+            pre_out_keys=tuple(post_to_pre[k] for k in out_keys),
+            flops=p1.flops_list + p2.flops_list + p3.flops_list,
+        )
+
+
+# ------------------------------------------------------------------- caches
+class _SignatureLRU:
+    """LRU cache of plans keyed by structural signature.
+
+    ``hits``/``misses``/``evictions`` count lookups and capacity evictions,
+    ``builds`` the plans built (equal to ``misses``: there is no persistent
+    plan store yet, ROADMAP Queue 1 #11), ``size`` the live entries.
+    Subclasses provide ``get``, which calls ``_get(signature, build)``.
     """
 
     def __init__(self, maxsize: int = 4096):
         self.maxsize = maxsize
         self._plans: OrderedDict = OrderedDict()
-        self.hits = 0
-        self.misses = 0
-        self.evictions = 0
+        self.hits = self.misses = self.evictions = self.builds = 0
 
-    def get(self, a: BlockSparseTensor, b: BlockSparseTensor, axes: Axes) -> ContractionPlan:
-        sig = plan_signature(a, b, axes)
+    def _get(self, sig, build):
         plan = self._plans.get(sig)
         if plan is not None:
             self.hits += 1
             self._plans.move_to_end(sig)
             return plan
         self.misses += 1
-        plan = ContractionPlan.build(a, b, axes)
-        self._plans[sig] = plan
+        self.builds += 1
+        plan = self._plans[sig] = build()
         while len(self._plans) > self.maxsize:
             self._plans.popitem(last=False)
             self.evictions += 1
@@ -260,4 +670,42 @@ class PlanCache:
         return len(self._plans)
 
     def stats(self) -> Dict[str, int]:
-        return {"hits": self.hits, "misses": self.misses, "evictions": self.evictions, "size": len(self._plans)}
+        return {"hits": self.hits, "misses": self.misses, "evictions": self.evictions,
+                "builds": self.builds, "size": len(self._plans)}
+
+
+class PlanCache(_SignatureLRU):
+    """LRU cache of ContractionPlans keyed by structural signature."""
+
+    def get(self, a: BlockSparseTensor, b: BlockSparseTensor, axes: Axes) -> ContractionPlan:
+        return self._get(plan_signature(a, b, axes), lambda: ContractionPlan.build(a, b, axes))
+
+
+class DecompPlanCache(_SignatureLRU):
+    """LRU cache of DecompositionPlans keyed by structural signature.
+
+    Its default size is small: a plan holds its buckets' gather tables on
+    the card once it has run there (tens of MB at m=1024), and a DMRG run
+    meets a new theta structure at almost every split until it converges.
+    """
+
+    def __init__(self, maxsize: int = 64):
+        super().__init__(maxsize)
+
+    def get(self, theta: BlockSparseTensor, n_row_modes: int) -> DecompositionPlan:
+        return self._get(decomp_signature(theta, n_row_modes), lambda: DecompositionPlan.build(theta, n_row_modes))
+
+
+class EnvPlanCache(_SignatureLRU):
+    """LRU cache of EnvironmentPlans keyed by the composite triple signature;
+    the three step plans come from ``contraction_cache``."""
+
+    def __init__(self, maxsize: int = 4096, contraction_cache: Optional[PlanCache] = None):
+        super().__init__(maxsize)
+        self.contraction_cache = contraction_cache if contraction_cache is not None else PlanCache()
+
+    def get(self, env, site, mpo, side: str) -> EnvironmentPlan:
+        return self._get(
+            env_signature(env, site, mpo, side),
+            lambda: EnvironmentPlan.build(env, site, mpo, side, self.contraction_cache),
+        )

@@ -24,6 +24,7 @@ work list once and reuses it (``dist/plan.py``).
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Dict, Optional
 
 import numpy as np
@@ -69,12 +70,34 @@ class WorkList:
     _dev: Dict = dataclasses.field(default_factory=dict, repr=False)
 
     def tables(self, device: torch.device):
-        """(items, fix, tile_fix) on ``device``, uploaded once per device."""
+        """(items, fix, tile_fix) on ``device``, uploaded once per device
+        without a host sync (the sources are this list's own arrays)."""
         t = self._dev.get(device)
         if t is None:
-            t = tuple(torch.from_numpy(a).to(device) for a in (self.items, self.fix, self.tile_fix))
+            t = tuple(torch.from_numpy(a).to(device, non_blocking=True) for a in (self.items, self.fix, self.tile_fix))
             self._dev[device] = t
         return t
+
+
+_SHARED: "OrderedDict[tuple, WorkList]" = OrderedDict()
+SHARED_MAX = 4096
+
+
+def shared_work_list(seg, bm: int, bk: int, bn: int) -> WorkList:
+    """``work_list(seg, None, bm, bk, bn)``, one object per distinct
+    (segments, shape) in the process (LRU, ``SHARED_MAX`` lists): the
+    batched backend meets the same small bucket shapes at every bond, and a
+    shared list uploads its tables once per device."""
+    seg = np.asarray(seg, dtype=np.int32)
+    key = (seg.tobytes(), int(bm), int(bk), int(bn))
+    wl = _SHARED.get(key)
+    if wl is None:
+        wl = _SHARED[key] = work_list(seg, None, bm, bk, bn)
+        while len(_SHARED) > SHARED_MAX:
+            _SHARED.popitem(last=False)
+    else:
+        _SHARED.move_to_end(key)
+    return wl
 
 
 def work_list(seg, extents: Optional[np.ndarray], bm: int, bk: int, bn: int) -> WorkList:

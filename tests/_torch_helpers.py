@@ -91,21 +91,20 @@ def jax_from_arrays(arrays):
 SLICE_KW = dict(sweeps_per_bond=2, davidson_iters=4)
 
 
-def jax_reference(space, terms, n, bond_schedule):
-    """The JAX run the slice is held to: ``algo="list"`` with the seed
-    per-sector SVD and the three-call environment updates, on an MPO built
-    and compressed by the JAX package.  Returns plain data: the MPO and the
-    final MPS as arrays, per-sweep energies and Davidson restarts, and the
-    exact ground energy in the Sz=0 sector."""
+def jax_reference(space, terms, n, bond_schedule, **run_kw):
+    """The JAX run the slice is held to: by default ``algo="list"`` with
+    the seed per-sector SVD and the three-call environment updates
+    (``run_kw`` replaces these), on an MPO built and compressed by the JAX
+    package.  Returns plain data: the MPO and the final MPS as arrays,
+    per-sweep energies and Davidson restarts, and the exact ground energy in
+    the Sz=0 sector."""
     from repro.core.dmrg import run_dmrg
     from repro.core.ed import ground_energy
     from repro.core.mpo import build_mpo, compress_mpo, mpo_bond_dims
 
     mpo = compress_mpo(build_mpo(space, terms, n), cutoff=1e-13)
-    res = run_dmrg(
-        space, terms, n, bond_schedule=bond_schedule, algo="list",
-        svd_method="unplanned", jit_env=False, mpo=mpo, **SLICE_KW,
-    )
+    run_kw = run_kw or dict(algo="list", svd_method="unplanned", jit_env=False)
+    res = run_dmrg(space, terms, n, bond_schedule=bond_schedule, mpo=mpo, **run_kw, **SLICE_KW)
     return dict(
         mpo=[to_arrays(w) for w in mpo],
         mpo_bond_dims=mpo_bond_dims(mpo),
@@ -116,18 +115,19 @@ def jax_reference(space, terms, n, bond_schedule):
     )
 
 
-def check_slice(ref, space, terms, n, bond_schedule, algo, ed_tol):
-    """The port's ``run_dmrg`` on the carried-across JAX MPO, held to the
-    JAX run sweep by sweep (<1e-10) and to exact diagonalization
-    (``ed_tol``).  Both sides must restart Davidson equally often; a
-    restart draws different random directions in the two packages
+def check_slice(ref, space, terms, n, bond_schedule, algo, ed_tol, **port_kw):
+    """The port's ``run_dmrg`` (with ``port_kw``) on the carried-across JAX
+    MPO, held to the JAX run sweep by sweep (<1e-10) and to exact
+    diagonalization (``ed_tol``).  Both sides must restart Davidson equally
+    often; a restart draws different random directions in the two packages
     (threefry vs ``torch.Generator``), so a run that restarted is held to ED
     only.  Returns the port's result."""
     from repro_torch.convert import mpo_from_arrays
     from repro_torch.core import run_dmrg
 
     mpo = mpo_from_arrays(ref["mpo"], device="cpu")
-    res = run_dmrg(space, terms, n, bond_schedule=bond_schedule, algo=algo, mpo=mpo, device="cpu", **SLICE_KW)
+    res = run_dmrg(space, terms, n, bond_schedule=bond_schedule, algo=algo, mpo=mpo, device="cpu",
+                   **port_kw, **SLICE_KW)
     restarts = [s.davidson_restarts for s in res.sweep_stats]
     assert abs(res.energy - ref["e_ed"]) <= ed_tol, (res.energy, ref["e_ed"])
     assert all(s.davidson_exhausted == 0 for s in res.sweep_stats)
@@ -136,3 +136,14 @@ def check_slice(ref, space, terms, n, bond_schedule, algo, ed_tol):
         diffs = np.abs(np.array(res.energies) - np.array(ref["energies"]))
         assert np.all(diffs < 1e-10), (res.energies, ref["energies"])
     return res
+
+
+def rand_sectors(rng, nq=1, max_sectors=3, max_dim=4):
+    """Random ``Index`` sectors from a numpy rng: up to ``max_sectors``
+    distinct charges in [-2, 2]^nq, degeneracies 1..``max_dim``."""
+    uniq = []
+    for q in rng.choice(np.arange(-2, 3), size=(8, nq), replace=True):
+        q = tuple(int(c) for c in q)
+        if q not in uniq:
+            uniq.append(q)
+    return tuple((q, int(rng.integers(1, max_dim + 1))) for q in uniq[: rng.integers(1, max_sectors + 1)])

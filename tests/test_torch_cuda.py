@@ -471,3 +471,219 @@ def test_lm_decode_on_card_matches_forward(card, arch):
         logits, cache = models.decode_step(cfg, params, cache, tok[:, t], t)
         dec.append(logits)
     torch.testing.assert_close(torch.stack(dec, 1), full, rtol=2e-3, atol=2e-3)
+
+
+# ------------------------------------------------------ the planned pipeline
+def _padded_middle_operator(card, n=8, m=16):
+    """A batched engine and the padded operands (A, W_j, W_{j+1}, B, theta)
+    of the middle pair of an n-site Heisenberg chain after one sweep at
+    bond m on the card."""
+    from repro_torch.core import run_dmrg
+    from repro_torch.core.env import extend_left, extend_right, get_contractor, left_edge, right_edge
+    from repro_torch.core.models import heisenberg_chain_system
+    from repro_torch.core.mpo import build_mpo, compress_mpo
+    from repro_torch.dist.batch import pad_block_sparse
+
+    space, terms = heisenberg_chain_system(n)
+    mpo = compress_mpo(build_mpo(space, terms, n, device=card), cutoff=1e-13)
+    res = run_dmrg(space, terms, n, bond_schedule=(m,), sweeps_per_bond=1, davidson_iters=2,
+                   algo="batched", jit_matvec=True, mpo=mpo, device=card)
+    T, j = res.mps.tensors, n // 2 - 1
+    engine = get_contractor("batched", card)
+    A = left_edge(T[0], mpo[0])
+    for i in range(j):
+        A = extend_left(A, T[i], mpo[i], engine)
+    B = right_edge(T[n - 1], mpo[n - 1])
+    for i in range(n - 2, j, -1):
+        B = extend_right(B, T[i + 1], mpo[i + 1], engine)
+    theta = engine(T[j], T[j + 1], ((2,), (0,)))
+    ops = [pad_block_sparse(t) for t in (A, mpo[j], mpo[j + 1], B, theta)]
+    return engine, mpo, T, ops
+
+
+def _bst_rel_err(got, want):
+    assert set(got.blocks) == set(want.blocks)
+    scale = max(b.abs().max().item() for b in want.blocks.values())
+    return max((got.blocks[k] - want.blocks[k]).abs().max().item() for k in want.blocks) / scale
+
+
+def test_graph_replay_matches_eager_matvec_and_reads_fresh_inputs(card):
+    """The graphed matvec equals the eager batched matvec to 1e-12 relative
+    on every replay, and two replays with different x each equal their own
+    eager result (no replay reads the previous call's x)."""
+    from repro_torch.dist.graphs import GraphCache
+    from repro_torch.tensor.blocksparse import BlockSparseTensor
+
+    engine, _, _, (A, Wj, Wj1, B, x1) = _padded_middle_operator(card)
+    g = torch.Generator(device=card).manual_seed(3)
+    x2 = BlockSparseTensor(x1.indices, {k: torch.randn(b.shape, generator=g, dtype=b.dtype, device=card)
+                                        for k, b in x1.blocks.items()}, x1.charge)
+    engine.graphs = GraphCache()
+    mv = engine.matvec_fn(A, Wj, Wj1, B, jit=True)
+    results = [mv(x) for x in (x1, x2, x1, x2)]  # capture and replay, then replays
+    assert engine.graphs.captures == 1 and engine.graphs.replays == 4
+    for x, got in zip((x1, x2, x1, x2), results):
+        assert _bst_rel_err(got, engine.two_site_matvec(A, Wj, Wj1, B, x)) <= 1e-12
+    assert _bst_rel_err(results[1], results[0]) > 1e-3
+
+
+def test_graph_replay_counts_its_recorded_launches(card):
+    """kernels.LAUNCHES grows on every replay by the block GEMM launches the
+    graph recorded, as many as the eager matvec makes; the capture itself,
+    which runs nothing, counts none."""
+    engine, _, _, (A, Wj, Wj1, B, x) = _padded_middle_operator(card)
+    counts = lambda: dict(kernels.VARIANT_LAUNCHES["block_gemm"])  # noqa: E731
+    before = counts()
+    engine.two_site_matvec(A, Wj, Wj1, B, x)
+    eager = {k: n - before[k] for k, n in counts().items()}
+    assert sum(eager.values()) > 0
+    mv = engine.matvec_fn(A, Wj, Wj1, B, jit=True)
+    for _ in range(3):  # capture and replay, then replays
+        before = counts()
+        mv(x)
+        assert {k: n - before[k] for k, n in counts().items()} == eager
+
+
+def test_env_graph_matches_eager_env_update(card):
+    """The fused environment update replayed as a graph equals the same
+    update run eagerly, and the three-call extend_left/extend_right, to
+    1e-12 relative."""
+    from repro_torch.core.env import extend_left, extend_right, left_edge, right_edge
+    from repro_torch.dist.envcore import EnvironmentEngine
+
+    engine, mpo, T, _ = _padded_middle_operator(card)
+    n = len(T)
+    eager = EnvironmentEngine(jit=False)
+    A = left_edge(T[0], mpo[0])
+    B = right_edge(T[n - 1], mpo[n - 1])
+    for _ in range(2):  # capture, then replay
+        for j in range(n - 1):
+            want = extend_left(A, T[j], mpo[j], engine)
+            for got in (engine.env_update_left(A, T[j], mpo[j]), eager.update_left(A, T[j], mpo[j])):
+                assert _bst_rel_err(got, want) <= 1e-12
+            A = want
+        for j in range(n - 1, 0, -1):
+            want = extend_right(B, T[j], mpo[j], engine)
+            assert _bst_rel_err(engine.env_update_right(B, T[j], mpo[j]), want) <= 1e-12
+            B = want
+        A, B = left_edge(T[0], mpo[0]), right_edge(T[n - 1], mpo[n - 1])
+    assert engine.graphs.replays > 0
+
+
+def test_bucket_gemm_matches_plain(card):
+    """Every bucket of the middle-bond matvec through the kernel equals its
+    plain version to 1e-12 relative (exact shapes, no extents)."""
+    from repro_torch.dist.batch import bucket_operands, matricize_lhs, matricize_rhs
+    from repro_torch.kernels.block_gemm.ops import block_sparse_matmul
+    from repro_torch.kernels.block_gemm.ref import block_sparse_matmul_ref
+
+    engine, _, _, (A, Wj, Wj1, B, x) = _padded_middle_operator(card)
+    t, n_buckets = x, 0
+    for i, axes in enumerate([((2,), (0,)), ((1, 2), (0, 2)), ((4, 1), (0, 2)), ((4, 1), (1, 2))]):
+        a, b = (A, t) if i == 0 else (t, (Wj, Wj1, B)[i - 1])
+        plan = engine.cache.get(a, b, axes)
+        am, bm = matricize_lhs(a, plan.keep_a, plan.ax_a), matricize_rhs(b, plan.keep_b, plan.ax_b)
+        for bucket, oi in zip(plan.batched.buckets, plan.batched.device_tables(card)):
+            lhs, rhs = bucket_operands(bucket, am, bm)
+            got = block_sparse_matmul(lhs, rhs, oi, len(bucket.out_keys), work=bucket.work)
+            want = block_sparse_matmul_ref(lhs, rhs, oi, len(bucket.out_keys))
+            assert (got - want).abs().max().item() <= 1e-12 * max(want.abs().max().item(), 1e-300)
+            n_buckets += 1
+        t = engine(a, b, axes)
+    assert n_buckets > 4
+
+
+def test_graph_capture_error_raises(card):
+    """A body that syncs with the host cannot be captured: the capturing
+    call raises, and so does every later call of the structure (nothing
+    runs it eagerly instead)."""
+    from repro_torch.dist.graphs import GraphCache
+
+    cache = GraphCache()
+    x = torch.ones(8, dtype=torch.float64, device=card)
+
+    def body(_fixed, live, _keep):
+        return [live[0] * float(live[0].sum().item())]
+
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            cache.run("syncs", body, lambda: ([(8,)], None, None), [x])
+    assert cache.captures == 0 and cache.replays == 0
+
+
+def test_graph_replay_outlives_the_plans_caches(card):
+    """A captured matvec reads its plans' device tables by address.  With
+    the plan cache dropped, the shared work lists cleared, the memory they
+    held free for reuse and refilled with zeros, a replay still equals the
+    eager matvec to 1e-12 relative: the graph's entry keeps its plans."""
+    import gc
+
+    from repro_torch.dist.graphs import GraphCache
+    from repro_torch.dist.plan import PlanCache
+    from repro_torch.kernels.block_gemm import work
+
+    engine, _, _, (A, Wj, Wj1, B, x) = _padded_middle_operator(card)
+    engine.cache, engine.graphs = PlanCache(), GraphCache()
+    mv = engine.matvec_fn(A, Wj, Wj1, B, jit=True)
+    mv(x)  # capture and replay
+    want = engine.two_site_matvec(A, Wj, Wj1, B, x)
+    engine.cache = PlanCache(maxsize=1)
+    work._SHARED.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    # take every free block of the allocator's small pool and zero it: a
+    # freed table would now read as zeros
+    reserved, scratch = torch.cuda.memory_reserved(card), []
+    while torch.cuda.memory_reserved(card) == reserved and len(scratch) < 1 << 16:
+        scratch.append(torch.zeros(128, dtype=torch.int32, device=card))
+    got = mv(x)
+    torch.cuda.synchronize()
+    assert engine.graphs.captures == 1 and engine.graphs.replays == 2
+    assert _bst_rel_err(got, want) <= 1e-12
+
+
+def test_planned_split_syncs_twice_per_bucket_and_once_more(card):
+    """A planned split on the card syncs the host 2 x buckets + 1 times:
+    twice inside each bucket's torch.linalg.svd (cuSOLVER's info checks)
+    and once at the singular values' read, as stats()["host_syncs"]
+    counts.  A change that adds a sync fails here."""
+    import warnings
+
+    from repro_torch.dist.decomp import DecompositionEngine
+
+    _, _, _, (*_, theta) = _padded_middle_operator(card)
+    dec = DecompositionEngine()
+    dec.svd_split(theta, 2, 16)  # builds the plan and uploads its tables
+    torch.cuda.synchronize()
+    before = dec.stats()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            dec.svd_split(theta, 2, 16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = dec.stats()
+    buckets = after["buckets"] - before["buckets"]
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert buckets >= 2
+    assert len(syncs) == 2 * buckets + 1 == after["host_syncs"] - before["host_syncs"]
+
+
+def test_batched_jit_run_on_card_matches_csr(card):
+    """run_dmrg(algo="batched", jit_matvec=True) on the card launches the
+    block GEMM from graph replays and reaches the csr run's 3x2 energy to
+    1e-10 and ED to 1e-8."""
+    from repro_torch.core import run_dmrg
+    from repro_torch.core.ed import ground_energy
+    from repro_torch.core.models import heisenberg_j1j2_terms
+    from repro_torch.core.siteops import spin_half_space
+
+    sp, terms = spin_half_space(), heisenberg_j1j2_terms(3, 2, 1.0, 0.5, cylinder=False)
+    kw = dict(bond_schedule=(8, 16), davidson_iters=6)
+    e_csr = run_dmrg(sp, terms, 6, algo="csr", **kw).energy
+    res = run_dmrg(sp, terms, 6, algo="batched", jit_matvec=True, **kw)
+    assert sum(s.graphs["graph_replays"] for s in res.sweep_stats) > 0
+    assert sum(sum(s.block_gemm_launches.values()) for s in res.sweep_stats) > 0
+    assert abs(res.energy - e_csr) < 1e-10
+    assert abs(res.energy - ground_energy(sp, terms, 6, charge=(0,))) <= 1e-8
