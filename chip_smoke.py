@@ -55,7 +55,33 @@ Phases (any failure exits non-zero):
      matvec (1e-12 relative) for two inputs in turn; the block GEMM on that
      matvec's largest bucket against its plain version, timed beside
      bmm + index_add_, with its bound;
-  11. summary lines, then {"ok": true, "device": {...}} as the last line.
+  11. the engine front door's path, run_dmrg(algo="auto", jit_matvec=True)
+     with the reference's defaults on the 8x4 run over the full BONDS: per
+     sweep its seconds, SVD seconds, contractions by backend (the cost
+     model's choices), graph captures and replays, block GEMM launches by
+     variant and peak memory; its last energy held to phase 10's (1e-8).
+     The block GEMM launches exactly where the cost model chose batched:
+     on this run the reference's cost model chooses list throughout, so
+     the phase launches none, and phases 4 and 10 are the checks of the
+     kernel on a DMRG path.
+     Phases 4, 10 and 11 also hold every degradation-ladder counter at zero
+     (contraction, environment and pair retries, SVD retries);
+  12. on that run's middle bond (m=1024) one eager two-site matvec through
+     a dense, a batched and a list engine, held to each other (1e-12
+     relative) and timed; then algo="dense" and "auto" on the 3x2 case
+     against ED (1e-8);
+  13. faults on the card: batch.gemm_nan (eager matvec), decomp.svd_fail,
+     env.exception (graphed environment updates) and davidson.no_converge,
+     each armed once on the 6-site Heisenberg chain, the recovered energy
+     held to a clean run (1e-10) with the ladder counters expected;
+  14. checkpoint and resume: the auto 8x4 run at bonds (128, 256) killed by
+     sweep.kill in the middle of its second sweep, rerun on the same
+     checkpoint directory, every sweep energy held to the uninterrupted run
+     (1e-10; whether bitwise equal is printed);
+  15. observables: Sz, SzSz and S+S- on the 3x2 case against ED (1e-8); on
+     the 8x4 auto ground state the sum of <Sz_i> against the state's total
+     charge (1e-8) and correlation_profile("Sz", "Sz", ref=0) timed;
+  16. summary lines, then {"ok": true, "device": {...}} as the last line.
 Needs a CUDA card; exits non-zero without one, printing no result.
 """
 from __future__ import annotations
@@ -786,6 +812,7 @@ def planned_pipeline(dev, record, space, terms, mpo):
         fail("a batched sweep had exhausted Davidson solves")
     if not abs(e_last - e_csr_last) <= 1e-8:
         fail(f"batched last-sweep energy {e_last} vs csr {e_csr_last}")
+    rec["ladder"] = assert_no_recovery("the batched run", res)
     replays = sum(r["graphs"]["graph_replays"] for r in sweeps)
     if launches["block_gemm"] == 0 or replays == 0 or variants["skinny"] == 0 or variants["tiled_dmma"] == 0:
         fail(f"the batched run launched {variants} block GEMMs with {replays} graph replays")
@@ -854,6 +881,277 @@ def planned_pipeline(dev, record, space, terms, mpo):
                **bound(flops, PEAK_FLOPS[lhs.dtype], nbytes))
     log("  largest bucket " + json.dumps(row))
     rec["largest_bucket"] = row
+    return rec
+
+
+def assert_no_recovery(what: str, res) -> dict:
+    """Every ladder counter of a run is zero.  A ladder recovers only from an
+    injected fault or a health guard's finding (a kernel that fails to build
+    or launch raises through it), but a kernel whose non-finite output a
+    pair ladder recovered would otherwise pass unseen."""
+    st = res.engine_stats
+    counters = dict(retries=st["retries"], degradations=st["degradations"],
+                    svd_retries=st["decomp"]["retries"], svd_degradations=st["decomp"]["degradations"],
+                    pair_retries=[s.pair_retries for s in res.sweep_stats])
+    if (counters["retries"] or counters["degradations"] or counters["svd_retries"]
+            or any(counters["svd_degradations"].values()) or any(counters["pair_retries"])):
+        fail(f"{what}: a ladder recovered something in a clean run: {counters}")
+    return counters
+
+
+# ---------------------------------------------------------------- phase 11
+def auto_path(dev, record, space, terms, mpo):
+    """run_dmrg(algo="auto", jit_matvec=True), the reference's defaults, on
+    the 8x4 cylinder over the full BONDS: per sweep its seconds, SVD seconds,
+    contractions by backend, graph captures and replays, block GEMM launches
+    by variant and peak memory; its last energy held to phase 10's (1e-8)
+    and every ladder counter zero.  The block GEMM runs here exactly where
+    the cost model chooses the batched backend."""
+    from repro_torch import kernels
+    from repro_torch.core import run_dmrg
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run_dmrg(space, terms, len(mpo), bond_schedule=BONDS, sweeps_per_bond=1, davidson_iters=2, mpo=mpo,
+                   algo="auto", jit_matvec=True, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, variants = dict(kernels.LAUNCHES), dict(kernels.VARIANT_LAUNCHES["block_gemm"])
+    sweeps = []
+    for m, st in zip(BONDS, res.sweep_stats):
+        row = dict(m=m, energy=st.energy, seconds=st.seconds, svd_seconds=st.svd_seconds, env_seconds=st.env_seconds,
+                   max_bond=st.max_bond, backend_counts=st.backend_counts,
+                   graph_captures=st.graphs["graph_captures"], graph_replays=st.graphs["graph_replays"],
+                   pool_bytes=st.graphs["pool_bytes"], block_gemm_launches=st.block_gemm_launches,
+                   peak_gib=st.peak_bytes / 2**30, davidson_exhausted=st.davidson_exhausted)
+        sweeps.append(row)
+        log("  sweep " + json.dumps(row))
+    counters = assert_no_recovery("the auto run", res)
+    e_last, e_batched = sweeps[-1]["energy"], record["planned"]["sweeps"][-1]["energy"]
+    chosen = {k: sum(r["backend_counts"][k] for r in sweeps) for k in sweeps[0]["backend_counts"]}
+    log(f"  run {wall:.1f} s, contractions by backend {chosen} (captures and eager calls; replays run none), "
+        f"block_gemm launches by variant {variants} (replays included), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last sweep E={e_last:.12f}, batched (phase 10) "
+        f"{e_batched:.12f}, |dE|={abs(e_last - e_batched):.2e}; ladder counters {counters}")
+    es = [r["energy"] for r in sweeps]
+    if not all(np.isfinite(es)) or any(r["davidson_exhausted"] for r in sweeps):
+        fail(f"auto sweep energies {es}")
+    if not abs(e_last - e_batched) <= 1e-8:
+        fail(f"auto last-sweep energy {e_last} vs batched {e_batched}")
+    if sum(r["graph_replays"] for r in sweeps) == 0:
+        fail("the auto run replayed no graph")
+    # the kernel is on this path exactly where the cost model routes to batched
+    if (launches["block_gemm"] > 0) != (chosen["batched"] > 0):
+        fail(f"auto chose batched {chosen['batched']} times and launched {launches['block_gemm']} block GEMMs")
+    return dict(bonds=BONDS, sweeps=sweeps, wall_s=wall, launches=launches, variant_launches=variants,
+                backend_counts=chosen, ladder=counters, peak_gib=torch.cuda.max_memory_allocated() / 2**30), res
+
+
+# ---------------------------------------------------------------- phase 12
+def dense_vs_batched(dev, res, mpo):
+    """On the auto run's middle bond (m=1024) one two-site matvec through a
+    dense, a batched and a list engine (eager), held to each other (1e-12
+    relative) and timed with CUDA events; then algo="dense" and "auto" on
+    the 3x2 case against ED (1e-8)."""
+    from repro_torch.core import run_dmrg
+    from repro_torch.core.ed import ground_energy
+    from repro_torch.core.env import left_edge, right_edge
+    from repro_torch.core.models import heisenberg_j1j2_terms
+    from repro_torch.core.siteops import spin_half_space
+    from repro_torch.dist.engine import ContractionEngine
+
+    T, n = res.mps.tensors, len(mpo)
+    j = n // 2 - 1
+    batched = ContractionEngine("batched")
+    A = left_edge(T[0], mpo[0])
+    for i in range(j):
+        A = batched.env_update_left(A, T[i], mpo[i])
+    B = right_edge(T[n - 1], mpo[n - 1])
+    for i in range(n - 2, j, -1):
+        B = batched.env_update_right(B, T[i + 1], mpo[i + 1])
+    x = batched(T[j], T[j + 1], ((2,), (0,)))
+    rec = dict(bond=j, m=T[j].indices[2].dim, x_blocks=len(x.blocks))
+    out, mvs = {}, {}
+    for name in ("batched", "dense", "list"):
+        engine = batched if name == "batched" else ContractionEngine(name)
+        mvs[name] = engine.matvec_fn(A, mpo[j], mpo[j + 1], B, jit=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = mvs[name](x)
+        torch.cuda.synchronize()
+        rec[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    for name in ("dense", "list"):
+        rec[f"{name}_vs_batched_rel_err"] = bst_rel_err(out[name], out["batched"])
+    rec.update(timed({f"{k}_ms": (lambda f=f: f(x)) for k, f in mvs.items()}, dict(batched_ms=5, dense_ms=5, list_ms=5)))
+    log("  middle bond matvec " + json.dumps(rec))
+    if not max(rec["dense_vs_batched_rel_err"], rec["list_vs_batched_rel_err"]) <= 1e-12:
+        fail(f"middle-bond matvec: dense/list vs batched {rec['dense_vs_batched_rel_err']:.2e} "
+             f"{rec['list_vs_batched_rel_err']:.2e}")
+    sp, small = spin_half_space(), heisenberg_j1j2_terms(3, 2, 1.0, 0.5, cylinder=False)
+    e_ed = ground_energy(sp, small, 6)
+    for algo in ("dense", "auto"):
+        r = run_dmrg(sp, small, 6, bond_schedule=(8, 16), davidson_iters=6, algo=algo, jit_matvec=True, device=dev)
+        rec[f"3x2_{algo}"] = dict(energy=r.energy, e_ed=e_ed, ladder=assert_no_recovery(f"3x2 {algo}", r))
+        log(f"  3x2 E({algo}, graphs)={r.energy:.12f} |dE_ED|={abs(r.energy - e_ed):.2e}")
+        if not abs(r.energy - e_ed) <= 1e-8:
+            fail(f"3x2 {algo} energy {r.energy} vs ED {e_ed}")
+    return rec
+
+
+# ---------------------------------------------------------------- phase 13
+def faults_on_card(dev):
+    """Each DMRG fault point armed once on the 6-site Heisenberg chain
+    (h=0.3, two sweeps at m=8) of the reference's fault tests: the recovered
+    energy held to a clean run on the card (1e-10), with the counters those
+    tests assert.  The sweep.kill point is phase 14's."""
+    import math
+
+    from repro_torch.core.models import heisenberg_chain_system
+    from repro_torch.core.mpo import build_mpo, compress_mpo
+    from repro_torch.core.mps import neel_states, product_state_mps
+    from repro_torch.core.sweep import DMRGEngine
+    from repro_torch.dist import faults
+
+    n = 6
+    space, terms = heisenberg_chain_system(n, h=0.3)
+    mpo = compress_mpo(build_mpo(space, terms, n, device=dev), cutoff=1e-13)
+
+    def two_sweeps(**kw):
+        eng = DMRGEngine(product_state_mps(space, neel_states(space, n), device=dev), mpo, algo="batched",
+                         davidson_iters=4, device=dev, **kw)
+        first = eng.sweep(max_bond=8)
+        return eng, first, eng.sweep(max_bond=8)
+
+    faults.registry.clear()
+    rec = {}
+    for name, jit in (("clean", False), ("clean_graphs", True)):
+        eng, _, last = two_sweeps(jit_matvec=jit)
+        rec[name] = last.energy
+    cases = (
+        ("batch.gemm_nan", dict(count=1), dict(jit_matvec=False)),
+        ("decomp.svd_fail", dict(count=1), dict(jit_matvec=True)),
+        ("env.exception", dict(count=2), dict(jit_matvec=True)),
+        ("davidson.no_converge", dict(count=math.inf), dict(jit_matvec=True)),
+    )
+    try:
+        for point, arm, kw in cases:
+            with faults.inject(point, **arm) as f:
+                eng, first, last = two_sweeps(**kw)
+            st = eng.contract_fn.stats()
+            row = dict(fired=f.fired, energy=last.energy, retries=st["retries"], degradations=st["degradations"],
+                       svd_retries=st["decomp"]["retries"], svd_degradations=st["decomp"]["degradations"],
+                       pair_retries=first.pair_retries + last.pair_retries,
+                       davidson_converged=first.davidson_converged + last.davidson_converged)
+            clean = rec["clean_graphs" if kw["jit_matvec"] else "clean"]
+            row["abs_err_vs_clean"] = abs(last.energy - clean)
+            log(f"  {point}: " + json.dumps(row))
+            expected = {
+                "batch.gemm_nan": f.fired == 1 and row["pair_retries"] == 1 and st["degradations"] == {"pair_seed": 1},
+                "decomp.svd_fail": f.fired == 1 and row["svd_retries"] == 1
+                and row["svd_degradations"] == {"svd_exact": 0, "svd_unplanned": 1},
+                "env.exception": f.fired == 2 and st["retries"] == {"env": 2} and st["degradations"] == {"env_seed": 2},
+                "davidson.no_converge": f.fired == 2 * 2 * (n - 1) and row["davidson_converged"] == 0,
+            }[point]
+            if not (expected and row["abs_err_vs_clean"] <= 1e-10):
+                fail(f"fault {point}: {row}")
+            rec[point] = row
+    finally:
+        faults.registry.clear()
+    return rec
+
+
+# ---------------------------------------------------------------- phase 14
+def checkpoint_resume(dev, space, terms, mpo):
+    """The slice's path at a cut depth (bonds 128, 256; the bond reaches 4,
+    then 16), killed by sweep.kill after a site update in the middle of the
+    second sweep, then rerun on the same checkpoint directory: every sweep
+    energy held to the uninterrupted run's (1e-10)."""
+    import tempfile
+
+    from repro_torch.core import run_dmrg
+    from repro_torch.dist import faults
+    from repro_torch.dist.faults import FaultInjected
+
+    n = len(mpo)
+    kw = dict(bond_schedule=(128, 256), sweeps_per_bond=1, davidson_iters=2, mpo=mpo, algo="auto",
+              jit_matvec=True, device=dev)
+    clean = run_dmrg(space, terms, n, **kw)
+    kill_after = 2 * (n - 1) + (n - 1)  # site updates before the kill: the first sweep and half the second
+    faults.registry.clear()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
+        try:
+            with faults.inject("sweep.kill", after=kill_after - 1, count=1) as f:
+                try:
+                    run_dmrg(space, terms, n, checkpoint_dir=ckdir, **kw)
+                except FaultInjected:
+                    pass
+                else:
+                    fail("sweep.kill did not stop the run")
+        finally:
+            faults.registry.clear()
+        t0 = time.perf_counter()
+        res = run_dmrg(space, terms, n, checkpoint_dir=ckdir, **kw)
+        resume_s = time.perf_counter() - t0
+    diffs = [abs(a - b) for a, b in zip(res.energies, clean.energies)]
+    site_bitwise = [a.site_energies == b.site_energies for a, b in zip(res.sweep_stats, clean.sweep_stats)]
+    rec = dict(killed_after_site_updates=kill_after, fired=f.fired, energies=res.energies,
+               clean_energies=clean.energies, abs_diffs=diffs, bitwise_equal=res.energies == clean.energies,
+               site_energies_bitwise=site_bitwise, resume_s=resume_s, checkpoint_write_s=res.checkpoint_seconds,
+               resumed_graph_captures=[s.graphs["graph_captures"] for s in res.sweep_stats[-1:]])
+    log("  resume " + json.dumps(rec))
+    if f.fired != 1 or len(diffs) != 2 or not max(diffs) <= 1e-10:
+        fail(f"resumed run vs uninterrupted: {rec}")
+    assert_no_recovery("the resumed run", res)
+    return rec
+
+
+# ---------------------------------------------------------------- phase 15
+def observables(dev, res, space):
+    """Sz, SzSz and S+S- on the 3x2 case against ED (1e-8); on the auto
+    8x4 ground state the sum of <Sz_i> against the state's total charge
+    (1e-8) and correlation_profile("Sz", "Sz", ref=0) timed."""
+    from repro_torch.core import run_dmrg
+    from repro_torch.core.ed import build_dense_hamiltonian, state_charges_vector
+    from repro_torch.core.measure import correlation, correlation_profile, site_expectation
+    from repro_torch.core.models import heisenberg_j1j2_terms
+    from repro_torch.core.mps import neel_states, total_charge
+    from repro_torch.core.siteops import spin_half_space
+
+    sp, small, n = spin_half_space(), heisenberg_j1j2_terms(3, 2, 1.0, 0.5, cylinder=False), 6
+    r = run_dmrg(sp, small, n, bond_schedule=(8, 16), davidson_iters=6, algo="auto", jit_matvec=True, device=dev)
+    H = build_dense_hamiltonian(sp, small, n)
+    mask = np.all(state_charges_vector(sp, n) == np.array((0,)), axis=1)
+    psi = np.zeros(2**n)
+    psi[mask] = np.linalg.eigh(H[np.ix_(mask, mask)])[1][:, 0]
+
+    def op(o, site):
+        m = np.ones((1, 1))
+        for s in range(n):
+            m = np.kron(m, np.asarray(sp.ops[o]) if s == site else np.eye(2))
+        return m
+
+    errs = [abs(site_expectation(r.mps, sp, "Sz", s) - psi @ op("Sz", s) @ psi) for s in range(n)]
+    errs += [abs(correlation(r.mps, sp, "Sz", "Sz", i, j) - psi @ op("Sz", i) @ op("Sz", j) @ psi)
+             for i, j in ((0, 1), (1, 4), (0, 5))]
+    errs += [abs(correlation(r.mps, sp, "S+", "S-", i, j) - psi @ op("S+", i) @ op("S-", j) @ psi)
+             for i, j in ((0, 3), (2, 5))]
+    rec = dict(small_max_abs_err_vs_ed=max(errs))
+    n8 = res.mps.n_sites
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sz_sum = sum(site_expectation(res.mps, space, "Sz", i) for i in range(n8))
+    rec["sz_sum_s"] = time.perf_counter() - t0
+    want = 0.5 * total_charge(space, neel_states(space, n8))[0]  # charge = 2 Sz
+    t0 = time.perf_counter()
+    prof = correlation_profile(res.mps, space, "Sz", "Sz", ref=0)
+    rec.update(sz_sum=sz_sum, sz_total=want, profile_s=time.perf_counter() - t0,
+               profile=[c for _, c in prof])
+    log("  observables " + json.dumps(rec))
+    if not (max(errs) <= 1e-8 and abs(sz_sum - want) <= 1e-8 and np.all(np.isfinite(rec["profile"]))
+            and len(prof) == n8 - 1):
+        fail(f"observables: {rec}")
     return rec
 
 
@@ -968,10 +1266,11 @@ def main():
         fail("a sweep had exhausted Davidson solves")
     if launches["block_gemm"] == 0:
         fail("the full-size run launched no block_gemm kernel")
+    ladder4 = assert_no_recovery("the csr run", res)
     engine = get_contractor("csr", dev)
     j, mid = middle_bond_matvec(engine, res, mpo, dev)
     record.update(full_size=dict(bonds=BONDS, sweeps=sweeps, wall_s=wall, launches=launches,
-                                 variant_launches=gemm_variants, peak_gib=peak_gb,
+                                 variant_launches=gemm_variants, peak_gib=peak_gb, ladder=ladder4,
                                  middle_bond=j, matvec_steps=mid))
 
     # ---- phase 5: LM kernels vs plain
@@ -997,14 +1296,36 @@ def main():
     log("phase 10: run_dmrg(algo=\"batched\", jit_matvec=True): 3x2, then the 8x4 run on the full BONDS")
     record["planned"] = planned = planned_pipeline(dev, record, space, terms, mpo)
 
-    # ---- phase 11: summary
+    # ---- phase 11: the slice's path, auto
+    log("phase 11: run_dmrg(algo=\"auto\", jit_matvec=True): the 8x4 run on the full BONDS")
+    auto, auto_res = auto_path(dev, record, space, terms, mpo)
+    record["auto"] = auto
+
+    # ---- phase 12: dense against batched at full size
+    log("phase 12: one middle-bond matvec through dense, batched and list engines; 3x2 dense and auto vs ED")
+    record["dense_vs_batched"] = dense_vs_batched(dev, auto_res, mpo)
+
+    # ---- phase 13: faults on the card
+    log("phase 13: each DMRG fault point armed once on the 6-site chain, held to a clean run")
+    record["faults"] = faults_on_card(dev)
+
+    # ---- phase 14: checkpoint and resume
+    log("phase 14: 8x4 auto run killed mid-sweep, resumed from its checkpoints")
+    record["resume"] = checkpoint_resume(dev, space, terms, mpo)
+
+    # ---- phase 15: observables
+    log("phase 15: observables on the 3x2 case against ED, and on the 8x4 auto ground state")
+    record["observables"] = observables(dev, auto_res, space)
+    del auto_res
+
+    # ---- phase 16: summary
     total = lambda k: sum(r[k] for r in mid)
     bound_ops = sum(r["bound_ms"] for r in mid if r["bound_by"] == "operations")
     bucket = planned["largest_bucket"]
     entries = [dict(
         name="block_gemm", route="cuda", source="src/repro_torch/kernels/block_gemm/block_gemm.cu",
         replaces="src/repro/kernels/block_gemm/kernel.py:59",
-        launches=launches["block_gemm"] + planned["launches"]["block_gemm"],
+        launches=launches["block_gemm"] + planned["launches"]["block_gemm"] + auto["launches"]["block_gemm"],
         max_abs_err=max([r["max_abs_err"] for r in mid] + [bucket["max_abs_err"]]), ms=total("ms"),
         plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
         bound_by="operations" if bound_ops >= total("bound_ms") / 2 else "bytes",
@@ -1013,7 +1334,10 @@ def main():
                    launches=launches["block_gemm"], variants=gemm_variants),
                "batched with graphs (phase 10; ms etc.: the middle-bond matvec's largest bucket)": dict(
                    launches=planned["launches"]["block_gemm"], variants=planned["variant_launches"],
-                   **{k: bucket[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")})},
+                   **{k: bucket[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}),
+               "auto with graphs (phase 11; the cost model's batched choices only)": dict(
+                   launches=auto["launches"]["block_gemm"], variants=auto["variant_launches"],
+                   backend_counts=auto["backend_counts"])},
     )]
     for name, arch, replaces in (
         ("flash_attention", "llama3_8b", "src/repro/kernels/flash_attention/kernel.py:70"),
@@ -1049,6 +1373,13 @@ def main():
         f"{[round(r['svd_seconds'], 2) for r in sw]} s, {planned['graph_replays']} graph replays, block_gemm "
         f"{planned['variant_launches']}; replay vs eager {max(planned['replay_vs_eager']['rel_errs']):.2e}; largest "
         f"bucket {bucket['ms']:.4f} ms (bound {bucket['bound_ms']:.4f}, bmm + index_add_ {bucket['library_ms']:.4f})")
+    auto, dvb, res14 = record["auto"], record["dense_vs_batched"], record["resume"]
+    log(f"auto path: 8x4 {auto['wall_s']:.1f} s, sweeps {[round(r['seconds'], 2) for r in auto['sweeps']]} s, "
+        f"contractions by backend {auto['backend_counts']}, block_gemm {auto['variant_launches']}; middle-bond "
+        f"matvec dense {dvb['dense_ms']:.2f} ms, batched {dvb['batched_ms']:.2f} ms, list {dvb['list_ms']:.2f} ms "
+        f"(dense vs batched {dvb['dense_vs_batched_rel_err']:.2e}); faults recovered "
+        f"{[p for p in record['faults'] if '.' in p]}; resume bitwise {res14['bitwise_equal']} "
+        f"(max |dE| {max(res14['abs_diffs']):.2e}); correlation profile {record['observables']['profile_s']:.2f} s")
     log(f"total {record['total_s']:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

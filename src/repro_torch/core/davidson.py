@@ -21,6 +21,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from ..dist import faults
 from ..dist.faults import NumericalHealthError
 from ..tensor.blocksparse import BlockSparseTensor
 
@@ -68,6 +69,9 @@ def davidson(
     vector's device.
     """
     info = DavidsonInfo()
+    # injected non-convergence: the residual break is suppressed, so the
+    # solve runs its full budget and reports converged=False
+    force_no_converge = faults.fire("davidson.no_converge") is not None
     x = x0.scale(1.0 / x0.norm())
     V = [x]
     AV = [matvec(x)]
@@ -112,7 +116,7 @@ def davidson(
             qn = float(np.sqrt(qn2_gram))
         else:
             qn = float(q.norm())
-        if qn < tol:
+        if qn < tol and not force_no_converge:
             info.converged = True
             break
 

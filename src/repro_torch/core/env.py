@@ -6,11 +6,14 @@ Environment index convention (bra, mpo, ket):
 so that every contraction with site/MPO/bra tensors type-checks by flow.
 
 The contraction backend is pluggable by name through ``get_contractor``:
-"list" (paper Alg. 2), "csr" (sparse-sparse, one segmented block GEMM per
-contraction on the card) and "batched" (one block GEMM per shape bucket)
-run through the plan-cached ``dist.ContractionEngine``; "csr_ref" is the
-csr backend on the block GEMM's plain PyTorch version; "list_unplanned" is
-the bare ``contract``.
+"list" (paper Alg. 2), "dense" (sparse-dense, one dense GEMM), "csr"
+(sparse-sparse, one segmented block GEMM per contraction on the card),
+"batched" (one block GEMM per shape bucket) and "auto" / "planned" (the
+cost model's choice per contraction) run through the plan-cached
+``dist.ContractionEngine``; "csr_ref" is the csr backend on the block
+GEMM's plain PyTorch version.  The ``*_unplanned`` names are the seed
+per-call algorithms: the bare ``contract``, ``contract_dense`` and
+``contract_block_csr`` on the plain GEMM.
 """
 from __future__ import annotations
 
@@ -20,10 +23,12 @@ import torch
 
 from ..device import resolve_device
 from ..dist.engine import ContractionEngine
-from ..tensor.blocksparse import BlockSparseTensor, contract
+from ..tensor.block_csr import contract_block_csr
+from ..tensor.blocksparse import BlockSparseTensor, contract, contract_dense
 from ..tensor.qn import IN, Index, OUT
 
-ALGOS = ("list", "csr", "batched", "csr_ref", "list_unplanned")
+ALGOS = ("list", "dense", "csr", "batched", "auto", "planned", "csr_ref", "list_unplanned", "dense_unplanned",
+         "csr_unplanned")
 
 
 def get_contractor(algo: str, device=None) -> Callable:
@@ -34,17 +39,18 @@ def get_contractor(algo: str, device=None) -> Callable:
     contractor itself computes on whatever device its operands lie.
     """
     resolve_device(device)
-    if algo in ("list", "csr", "batched"):
+    if algo in ("list", "dense", "csr", "batched"):
         return ContractionEngine(backend=algo)
+    if algo in ("auto", "planned"):
+        return ContractionEngine(backend="auto")
     if algo == "csr_ref":
         return ContractionEngine(backend="csr", use_kernel=False)
     if algo == "list_unplanned":
         return contract
-    if algo in ("dense", "auto", "planned", "dense_unplanned", "csr_unplanned"):
-        raise NotImplementedError(
-            f"algo={algo!r} is not ported yet: dense, auto and the other seed "
-            f"algorithms are ROADMAP Queue 1 #8"
-        )
+    if algo == "dense_unplanned":
+        return contract_dense
+    if algo == "csr_unplanned":
+        return lambda a, b, axes: contract_block_csr(a, b, axes, use_kernel=False)
     raise ValueError(f"unknown contraction algorithm: {algo}")
 
 

@@ -11,7 +11,7 @@ from typing import List, Sequence
 import torch
 
 from ..device import resolve_device
-from ..tensor.blocksparse import BlockSparseTensor
+from ..tensor.blocksparse import BlockSparseTensor, contract, flip_flow, svd_split
 from ..tensor.qn import Charge, IN, Index, OUT, qadd, qzero
 from .siteops import LocalSpace
 
@@ -30,6 +30,26 @@ class MPS:
     def max_bond(self) -> int:
         dims = self.bond_dims()
         return max(dims) if dims else 1
+
+    def total_blocks(self) -> int:
+        return sum(t.num_blocks for t in self.tensors)
+
+    def norm_sq(self) -> torch.Tensor:
+        """<psi|psi> by transfer-matrix contraction, a 0-d tensor on the
+        MPS's device (no host sync)."""
+        env = None
+        for t in self.tensors:
+            bra = t.conj()
+            if env is None:
+                env = contract(bra, t, ((0, 1), (0, 1)))      # (r_bra, r_ket)
+            else:
+                tmp = contract(env, t, ((1,), (0,)))           # (r_bra, sigma, r)
+                env = contract(bra, tmp, ((0, 1), (0, 1)))
+        return torch.real(sum(torch.sum(b) for b in env.blocks.values()))
+
+    def copy(self) -> "MPS":
+        """A new MPS with new block dicts over the same block tensors."""
+        return MPS([BlockSparseTensor(t.indices, dict(t.blocks), t.charge) for t in self.tensors])
 
 
 def product_state_mps(
@@ -67,3 +87,14 @@ def total_charge(space: LocalSpace, states: Sequence[int]) -> Charge:
     for s in states:
         q = qadd(q, space.state_charges[s])
     return q
+
+
+def right_canonicalize(mps: MPS, max_bond: int = 10**9, cutoff: float = 0.0) -> MPS:
+    """Sweep right to left, SVD-splitting each bond (the per-sector split);
+    the orthogonality center lands at site 0."""
+    tensors = list(mps.tensors)
+    for j in range(len(tensors) - 1, 0, -1):
+        theta = contract(tensors[j - 1], tensors[j], ((2,), (0,)))
+        U, V, _, _ = svd_split(theta, 2, max_bond=max_bond, cutoff=cutoff, absorb="left")
+        tensors[j - 1], tensors[j] = flip_flow(U, 2), flip_flow(V, 0)
+    return MPS(tensors)

@@ -21,23 +21,39 @@ the reference's engine path:
 A bare contractor takes the per-sector SVD and the three-call updates, and
 refuses the options it cannot honour.
 
-There is no degradation ladder: a failure in a contraction, a split, an
-environment update or a graph capture propagates, so a kernel fault
-surfaces where it happens.
+Failures recover on documented ladders, every rung on the run's device, and
+every recovery is counted (``ContractionEngine.stats()["retries"]`` and
+``["degradations"]``, ``SweepStats.pair_retries``), so a clean run reads
+zero everywhere.  A ladder recovers only from ``faults.RECOVERABLE`` (an
+injected fault, a health guard's finding); a kernel that does not build or
+launch, or a failed capture, propagates:
+- a fused environment update that raises a recoverable error is redone by
+  the three-call ``extend_left`` / ``extend_right`` ("env_seed");
+- a pair whose optimization meets a ``NumericalHealthError`` or an injected
+  fault is redone from its untouched inputs on the seed code paths: the
+  bare ``contract``, Davidson on it, the per-sector SVD ("pair_seed");
+- contractions and splits have their own ladders (``dist/engine.py``,
+  ``dist/decomp.py``).
+An error on the last rung propagates.
+
+``sweep(resume=, on_site=)`` and ``restored_envs`` carry a run across a
+crash (``core/checkpoint.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from .. import kernels
 from ..device import resolve_device
 from ..dist.batch import pad_block_sparse, unpad_block_sparse
+from ..dist import faults
 from ..dist.engine import ContractionEngine
-from ..tensor.blocksparse import BlockSparseTensor, flip_flow, svd_split
+from ..dist.faults import RECOVERABLE, FaultInjected
+from ..tensor.blocksparse import BlockSparseTensor, contract, flip_flow, svd_split
 from .davidson import davidson
 from .env import extend_left, extend_right, get_contractor, left_edge, matvec_two_site, right_edge
 from .mps import MPS
@@ -52,8 +68,6 @@ def unported(**args) -> None:
         "shard_policy": "Queue 1 #12 (multi-GPU)",
         "spmd": "Queue 1 #12 (multi-GPU)",
         "plan_store": "Queue 1 #11 (persistence)",
-        "checkpoint_dir": "Queue 1 #9 (robustness: checkpoints)",
-        "restored_envs": "Queue 1 #9 (robustness: checkpoints)",
     }
     for name, value in args.items():
         if value not in (None, False):
@@ -89,6 +103,9 @@ class SweepStats:
     # these count the captured structures, not the replays)
     flops_list: float = 0.0
     flops_csr: float = 0.0
+    # contractions this sweep per backend (under "auto", the cost model's
+    # choices); with jit_matvec these too count captures, not replays
+    backend_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
     # the engine's graph cache (dist/graphs.py): its counters' growth this
     # sweep (graph_captures, graph_replays, evictions, buffer_growths,
     # capture_seconds, instantiate_seconds) and its pool_bytes and
@@ -99,6 +116,9 @@ class SweepStats:
     # the card's peak allocated bytes at the sweep's end, since the peak was
     # last reset (torch.cuda.reset_peak_memory_stats); 0 on the CPU
     peak_bytes: int = 0
+    # pair optimizations that failed the fast path (NumericalHealthError or
+    # an injected fault) and were redone on the seed rung; 0 on a healthy run
+    pair_retries: int = 0
 
 
 class DMRGEngine:
@@ -124,7 +144,7 @@ class DMRGEngine:
         restored_envs=None,
         device=None,
     ):
-        unported(shard_policy=shard_policy, restored_envs=restored_envs)
+        unported(shard_policy=shard_policy)
         if mps.n_sites != len(mpo):
             raise ValueError(f"MPS has {mps.n_sites} sites, MPO {len(mpo)}")
         if svd_method not in SVD_METHODS:
@@ -161,7 +181,15 @@ class DMRGEngine:
         self.davidson_iters = davidson_iters
         self.seed = seed
         self.n = mps.n_sites
-        self._init_envs()
+        if restored_envs is not None:
+            # a checkpoint's exact copies of both lists: mid-sweep the right
+            # environments are partly stale, a state a rebuild cannot
+            # reproduce, so restoring them keeps a resume bit-identical
+            self.left_envs, self.right_envs = (list(e) for e in restored_envs)
+            if len(self.left_envs) != self.n + 1 or len(self.right_envs) != self.n + 1:
+                raise ValueError(f"restored environments for {len(self.left_envs) - 1} sites, MPS has {self.n}")
+        else:
+            self._init_envs()
 
     @property
     def _engine(self) -> Optional[ContractionEngine]:
@@ -184,15 +212,28 @@ class DMRGEngine:
         """A_{j+1} from A_j: absorb site j into the left environment."""
         A, T, W = self.left_envs[j], self.mps.tensors[j], self.mpo[j]
         if self.jit_env:
-            return self.contract_fn.env_update_left(A, T, W, mpo_padded=self._padded_mpo(j))
+            try:
+                return self.contract_fn.env_update_left(A, T, W, mpo_padded=self._padded_mpo(j))
+            except RECOVERABLE:
+                self._note_env_fallback()
         return extend_left(A, T, W, self.contract_fn)
 
     def _extend_right_env(self, j: int) -> BlockSparseTensor:
         """B_j from B_{j+1}: absorb site j+1 into the right environment."""
         B, T, W = self.right_envs[j + 1], self.mps.tensors[j + 1], self.mpo[j + 1]
         if self.jit_env:
-            return self.contract_fn.env_update_right(B, T, W, mpo_padded=self._padded_mpo(j + 1))
+            try:
+                return self.contract_fn.env_update_right(B, T, W, mpo_padded=self._padded_mpo(j + 1))
+            except RECOVERABLE:
+                self._note_env_fallback()
         return extend_right(B, T, W, self.contract_fn)
+
+    def _note_env_fallback(self) -> None:
+        """The fused update raised a recoverable error: the caller redoes it
+        on the three-call path, equal to it block for block.  Any other error
+        (a failed capture, a launch error) propagates."""
+        self.contract_fn.note_retry("env")
+        self.contract_fn.note_degradation("env_seed")
 
     def _padded_mpo(self, j: int) -> BlockSparseTensor:
         if self._mpo_padded[j] is None:
@@ -200,6 +241,38 @@ class DMRGEngine:
         return self._mpo_padded[j]
 
     def _optimize_pair(self, j: int, max_bond: int, cutoff: float, absorb: str):
+        """Optimize pair (j, j+1), redoing it on the seed rung on failure.
+
+        A ``NumericalHealthError`` (a guard at a host sync saw non-finite
+        values, e.g. a NaN-poisoned GEMM at the Davidson Rayleigh-Ritz
+        read) or an injected fault aborts the fast path before any MPS
+        tensor is written, so the seed rung starts from the same inputs.
+        """
+        try:
+            return self._optimize_pair_fast(j, max_bond, cutoff, absorb)
+        except RECOVERABLE:
+            if self._engine is not None:
+                self._engine.note_retry("pair")
+                self._engine.note_degradation("pair_seed")
+            return self._optimize_pair_seed(j, max_bond, cutoff, absorb)
+
+    def _optimize_pair_seed(self, j: int, max_bond: int, cutoff: float, absorb: str):
+        """The bottom rung: the pair on the seed code paths (the bare
+        ``contract``, Davidson on it, the per-sector SVD), on the run's
+        device, with no engine involved."""
+        T, W = self.mps.tensors, self.mpo
+        A, B, Wj, Wj1 = self.left_envs[j], self.right_envs[j + 1], W[j], W[j + 1]
+        theta = contract(T[j], T[j + 1], ((2,), (0,)))
+        lam, theta, dinfo = davidson(lambda x: matvec_two_site(A, Wj, Wj1, B, x, contract), theta,
+                                     n_iter=self.davidson_iters, seed=self.seed + j)
+        t_svd = time.perf_counter()
+        U, V, _, err = svd_split(theta, 2, max_bond=max_bond, cutoff=cutoff, absorb=absorb)
+        svd_dt = time.perf_counter() - t_svd
+        T[j] = flip_flow(U, 2)
+        T[j + 1] = flip_flow(V, 0)
+        return lam, err, svd_dt, dinfo
+
+    def _optimize_pair_fast(self, j: int, max_bond: int, cutoff: float, absorb: str):
         T, W = self.mps.tensors, self.mpo
         A, B = self.left_envs[j], self.right_envs[j + 1]
         theta = self.contract_fn(T[j], T[j + 1], ((2,), (0,)))
@@ -237,22 +310,49 @@ class DMRGEngine:
         engine = self._engine
         return (engine.flops_list, engine.backend_flops["csr"]) if engine is not None else (0.0, 0.0)
 
-    def sweep(self, max_bond: int, cutoff: float = 1e-12) -> SweepStats:
-        """One full left-to-right + right-to-left sweep; returns stats."""
+    def sweep(self, max_bond: int, cutoff: float = 1e-12, resume: Optional[Dict] = None,
+              on_site: Optional[Callable[[Optional[Dict]], None]] = None) -> SweepStats:
+        """One full left-to-right + right-to-left sweep; returns stats.
+
+        ``resume`` restarts mid-sweep from a state dict that ``on_site`` was
+        handed (phase, next site, partial accumulators); with the restored
+        MPS and environments it continues an interrupted sweep with the
+        uninterrupted run's energies (``core/checkpoint.py``).
+        ``on_site(state)`` is called after every site update (pair
+        optimization and environment extension) with the state that
+        restarts right after it, or ``None`` when the sweep has finished.
+        The ``sweep.kill`` fault point fires after ``on_site``, so a test
+        can checkpoint site k and die before site k+1.  The flop, graph,
+        launch and memory counters of a resumed sweep cover its resumed
+        part only.
+        """
         n = self.n
-        energies: List[float] = []
-        site_secs: List[float] = []
-        max_err = svd_secs = env_secs = 0.0
+        r = resume or {}
+        energies: List[float] = list(r.get("energies", []))
+        site_secs: List[float] = list(r.get("site_seconds", []))
+        max_err = float(r.get("max_err", 0.0))
+        svd_secs = float(r.get("svd_seconds", 0.0))
+        env_secs = float(r.get("env_seconds", 0.0))
+        secs_base = float(r.get("seconds", 0.0))
         dav = dict(solves=0, converged=0, iterations=0, restarts=0, exhausted=0)
+        dav.update(r.get("davidson", {}))
+        pair_retries = int(r.get("pair_retries", 0))
+        phase = r.get("phase", "LR")
+        start_j = int(r.get("j", 0 if phase == "LR" else n - 2))
+        engine = self._engine
         flops0 = self._flop_counters()
+        counts0 = dict(engine.backend_counts) if engine is not None else {}
         graphs0 = self._graph_stats()
         launches0 = dict(kernels.VARIANT_LAUNCHES["block_gemm"])
         t0 = time.perf_counter()
 
         def _site(j: int, absorb: str):
-            nonlocal max_err, svd_secs, env_secs
+            nonlocal max_err, svd_secs, env_secs, pair_retries
             ts = time.perf_counter()
+            before = engine.retries.get("pair", 0) if engine is not None else 0
             lam, err, svd_dt, dinfo = self._optimize_pair(j, max_bond, cutoff, absorb)
+            if engine is not None:
+                pair_retries += engine.retries.get("pair", 0) - before
             te = time.perf_counter()
             if absorb == "right":
                 self.left_envs[j + 1] = self._extend_left_env(j)
@@ -269,10 +369,26 @@ class DMRGEngine:
             dav["restarts"] += dinfo.restarts
             dav["exhausted"] += int(dinfo.exhausted)
 
-        for j in range(n - 1):  # left -> right
-            _site(j, "right")
-        for j in range(n - 2, -1, -1):  # right -> left
+        def _after_site(state: Optional[Dict]):
+            if on_site is not None:
+                if state is not None:
+                    state.update(
+                        energies=list(energies), site_seconds=list(site_secs), max_err=max_err,
+                        svd_seconds=svd_secs, env_seconds=env_secs, seconds=secs_base + time.perf_counter() - t0,
+                        davidson=dict(dav), pair_retries=pair_retries,
+                    )
+                on_site(state)
+            if faults.fire("sweep.kill") is not None:
+                raise FaultInjected("sweep.kill", "sweep killed after a site update")
+
+        if phase == "LR":
+            for j in range(start_j, n - 1):  # left -> right
+                _site(j, "right")
+                _after_site({"phase": "LR", "j": j + 1} if j + 1 < n - 1 else {"phase": "RL", "j": n - 2})
+            start_j = n - 2
+        for j in range(start_j, -1, -1):  # right -> left
             _site(j, "left")
+            _after_site({"phase": "RL", "j": j - 1} if j > 0 else None)
 
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # the sweep's time includes its last kernels
@@ -282,7 +398,7 @@ class DMRGEngine:
             energy=energies[-1],
             max_bond=self.mps.max_bond(),
             trunc_err=max_err,
-            seconds=time.perf_counter() - t0,
+            seconds=secs_base + time.perf_counter() - t0,
             site_seconds=site_secs,
             site_energies=energies,
             svd_seconds=svd_secs,
@@ -294,9 +410,11 @@ class DMRGEngine:
             davidson_exhausted=dav["exhausted"],
             flops_list=flops1[0] - flops0[0],
             flops_csr=flops1[1] - flops0[1],
+            backend_counts={k: c - counts0[k] for k, c in engine.backend_counts.items()} if engine is not None else {},
             graphs={k: v if k in ("pool_bytes", "buffer_bytes", "graphs") else v - graphs0[k] for k, v in graphs1.items()},
             block_gemm_launches={
                 k: n - launches0[k] for k, n in kernels.VARIANT_LAUNCHES["block_gemm"].items()
             },
             peak_bytes=torch.cuda.max_memory_allocated(self.device) if self.device.type == "cuda" else 0,
+            pair_retries=pair_retries,
         )

@@ -37,6 +37,8 @@ import torch.nn.functional as F
 from ..kernels.block_gemm.ops import block_sparse_matmul
 from ..tensor.blocksparse import BlockKey, BlockSparseTensor
 from ..tensor.qn import Index
+from . import faults
+from .graphs import capturing
 from .plan import ContractionPlan, ShapeBucket, bucket_dim
 
 BlockMats = Dict[BlockKey, torch.Tensor]
@@ -137,6 +139,13 @@ def execute_batched(
     if b_mats is None:
         b_mats = matricize_rhs(b, plan.keep_b, plan.ax_b)
     blocks = execute_batched_blocks(plan, a_mats, b_mats, use_kernel=use_kernel)
+    # fault point: NaN-poison one output block, a bad GEMM on a flaky card.
+    # Skipped inside a CUDA graph capture (the counterpart of the
+    # reference's tracing guard): a poisoned capture would replay the NaN
+    # long after the fault, so under jit_matvec it fires on eager calls only
+    k0 = next(iter(blocks), None)
+    if k0 is not None and not capturing(blocks[k0]) and faults.fire("batch.gemm_nan") is not None:
+        blocks[k0] = torch.full_like(blocks[k0], float("nan"))
     return BlockSparseTensor(plan.out_indices, blocks, plan.out_charge)
 
 

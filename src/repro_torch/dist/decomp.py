@@ -29,7 +29,10 @@ power-of-two ``(Rp, Cp)`` — one gather table into the flattened theta, and
 For sectors whose rank far exceeds ``max_bond`` a randomized SVD (sketch and
 power iterations, Halko et al. 2011) computes only the top ``max_bond +
 oversample`` triplets; ``method="auto"`` picks it per bucket by a flop cost
-model, ``"randomized"`` wherever the sketch is below the rank.
+model, ``"randomized"`` wherever the sketch is below the rank of the trimmed
+stack (``DecompositionEngine._bucket_methods`` states how that differs from
+the reference).  A failed split retries down a ladder that ends at the
+per-sector loop (``DecompositionEngine.svd_split``).
 
 Equality: with the exact method the split equals the per-sector loop up to
 the sign gauge of each singular vector — products U·V, singular values,
@@ -43,15 +46,19 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..tensor.blocksparse import BlockSparseTensor
+from ..tensor.blocksparse import BlockSparseTensor, svd_split
 from ..tensor.qn import IN, Index, OUT, qzero
-from .faults import NumericalHealthError
+from . import faults
+from .faults import RECOVERABLE, FaultInjected, NumericalHealthError
 from .plan import DecompPlanCache, DecompositionPlan, svd_flop_estimate
 
 METHODS = ("svd", "randomized", "auto")
 # host syncs inside one torch.linalg.svd on the card (cuSOLVER's info checks;
 # scripts/svd_syncs.py, and tests/test_torch_cuda.py holds a split to it)
 SVD_SYNCS = 2
+# what the SVD ladder recovers from: the faults every ladder recovers from,
+# and an SVD that did not converge
+SVD_RECOVERABLE = RECOVERABLE + (torch.linalg.LinAlgError,)
 
 
 def _randomized_svd(mats: torch.Tensor, sketch: int, power_iters: int, seed: int):
@@ -204,13 +211,29 @@ class DecompositionEngine:
         self.buckets_processed = 0
         self.rsvd_buckets = 0
         self.host_syncs = 0
+        # the degradation ladder's ledger: splits whose first attempt failed,
+        # and the rung that recovered each; both zero on a healthy run
+        self.retries = 0
+        self.degradations = {"svd_exact": 0, "svd_unplanned": 0}
 
     # ------------------------------------------------------------ cost model
     def _bucket_methods(self, plan: DecompositionPlan, max_bond: int) -> Tuple[Tuple[str, ...], int]:
-        """Per-bucket "svd"/"rsvd" choice and the sketch size: the randomized
-        path only where the sketch is below the bucket's rank,
-        and under "auto" only where it wins the flop comparison by
-        ``rsvd_min_gain``x."""
+        """Per-bucket "svd"/"rsvd" choice and the sketch size.
+
+        The randomized path only where the sketch is below the rank of the
+        stack this engine runs, ``min(rmax, cmax)`` (the bucket trimmed to
+        its largest true sector, see ``svd_core_body``), and under "auto"
+        only where it also wins the flop comparison, priced on the padded
+        ``(rp, cp)`` as the reference prices it, by ``rsvd_min_gain``x.
+        This differs from the reference, which compares the sketch with the
+        padded rank ``kp = min(rp, cp)``: where ``min(rmax, cmax) <= sketch
+        < kp`` the reference may take the randomized SVD and this engine
+        takes the exact one.  A sketch at or above the trimmed stack's rank
+        costs more than the exact SVD of that stack and gives the same
+        triplets, so the exact SVD is kept there
+        (``tests/test_torch_decomp_choice.py`` holds both choices against
+        the reference's).
+        """
         sketch = max_bond + self.rsvd_oversample
         if self.method == "svd":
             return ("svd",) * plan.num_buckets, sketch
@@ -246,12 +269,40 @@ class DecompositionEngine:
         squared Frobenius error ``||theta - U·V||²`` when ``absorb`` is
         "left" or "right".  Non-finite singular values at the sync raise
         ``NumericalHealthError(stage="svd")``.
+
+        A failed attempt (``torch.linalg.LinAlgError`` out of the batched
+        SVD, an injected ``decomp.svd_fail``, or non-finite singular values
+        at the sync; any other error propagates) retries down the ladder: randomized -> exact batched SVD -> the
+        per-sector loop ``tensor.blocksparse.svd_split``, on the same
+        device.  Each failed first attempt is counted in
+        ``stats()["retries"]`` and the rung that recovered it in
+        ``["degradations"]``; if the last rung fails, its exception (for a
+        poisoned theta, ``NumericalHealthError``) propagates.
         """
         t0 = time.perf_counter()
         try:
             plan = self.cache.get(theta, n_row_modes)
             methods, sketch = self._bucket_methods(plan, int(max_bond))
-            return self._execute(plan, theta, max_bond, cutoff, absorb, methods, sketch)
+            try:
+                if faults.fire("decomp.svd_fail") is not None:
+                    raise FaultInjected("decomp.svd_fail", "batched SVD did not converge")
+                return self._execute(plan, theta, max_bond, cutoff, absorb, methods, sketch)
+            except SVD_RECOVERABLE:
+                # the ladder: randomized -> exact batched -> per-sector loop,
+                # every rung on theta's device; the last rung's error propagates
+                self.retries += 1
+                if "rsvd" in methods:
+                    try:
+                        out = self._execute(plan, theta, max_bond, cutoff, absorb,
+                                            ("svd",) * plan.num_buckets, sketch)
+                    except SVD_RECOVERABLE:
+                        pass
+                    else:
+                        self.degradations["svd_exact"] += 1
+                        return out
+                out = svd_split(theta, n_row_modes, max_bond, cutoff=cutoff, absorb=absorb)
+                self.degradations["svd_unplanned"] += 1
+                return out
         finally:
             self.svd_seconds += time.perf_counter() - t0
 
@@ -323,6 +374,9 @@ class DecompositionEngine:
           one at the singular values' read and ``SVD_SYNCS`` inside each
           bucket's ``torch.linalg.svd``, so 2 x buckets + 1 (a randomized
           bucket's QR factorizations are not counted).
+        - ``retries``: splits whose first attempt failed;
+          ``degradations``: the rung that recovered each ("svd_exact",
+          "svd_unplanned").
         """
         return {
             "plan_cache": self.cache.stats(),
@@ -333,4 +387,6 @@ class DecompositionEngine:
             "buckets": self.buckets_processed,
             "rsvd_buckets": self.rsvd_buckets,
             "host_syncs": self.host_syncs,
+            "retries": self.retries,
+            "degradations": dict(self.degradations),
         }

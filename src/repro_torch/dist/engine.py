@@ -3,22 +3,35 @@
 The engine is callable as ``engine(a, b, axes)`` like the bare ``contract``
 and returns a ``BlockSparseTensor``.  Per call it fetches (or builds) the
 ``ContractionPlan`` of the contraction's structural signature from its
-``PlanCache`` and executes it on one of three backends:
+``PlanCache`` and executes it on one of four backends:
 
 - "list": one ``tensordot`` per block pair (paper Alg. 2);
+- "dense": both operands embedded densely, one ``tensordot``, the
+  charge-legal output blocks re-extracted (the paper's sparse-dense
+  algorithm; a library GEMM, as ``jnp.tensordot`` is in the reference);
 - "csr": every participating block matricized and zero-padded into one
   packed batch per operand, then ONE launch of the segmented block GEMM
   (``kernels/block_gemm``) — the paper's sparse-sparse contraction;
 - "batched": the pair list bucketed by exact matricized (M, K, N), one
-  block GEMM launch per bucket (``dist/batch.py``).
+  block GEMM launch per bucket (``dist/batch.py``);
 
-All compute the same charge-conserving contraction: output blocks agree
-with ``tensor.blocksparse.contract`` to rounding.  ``matvec_fn(jit=True)``
-replays the planned two-site matvec as one CUDA graph per padded structure
-(``dist/graphs.py``); ``svd_split`` fronts the planned batched SVD
-(``dist/decomp.py``) and ``env_update_left/right`` the fused environment
-updates (``dist/envcore.py``).  A failure in a backend propagates: there is
-no retry on another backend, so a kernel fault surfaces where it happens.
+either fixed, or chosen per plan by the reference's flop-and-dispatch cost
+model ("auto", ``choose_backend``; csr joins its candidates only with
+``allow_csr``).  All compute the same charge-conserving contraction: output
+blocks agree with ``tensor.blocksparse.contract`` to rounding.
+``matvec_fn(jit=True)`` replays the planned two-site matvec as one CUDA
+graph per padded structure (``dist/graphs.py``); ``svd_split`` fronts the
+planned batched SVD (``dist/decomp.py``) and ``env_update_left/right`` the
+fused environment updates (``dist/envcore.py``).
+
+A backend that raises a recoverable error (``faults.RECOVERABLE``: an
+injected fault or a health guard's finding) is retried down
+``CONTRACTION_LADDER`` to the seed ``contract`` on the same device
+(``_degraded_call``), and every recovery is counted in
+``stats()["retries"]`` and ``["degradations"]``: a clean run keeps both
+empty.  Any other error propagates: a block GEMM that does not build or
+launch on a CUDA tensor is never replaced by a library rung.  Inside a CUDA
+graph capture nothing is retried: the capture fails.
 """
 from __future__ import annotations
 
@@ -29,14 +42,23 @@ import torch
 
 from ..kernels.block_gemm.ops import block_sparse_matmul
 from ..tensor.block_csr import pack_blocks
-from ..tensor.blocksparse import BlockKey, BlockSparseTensor
+from ..tensor.blocksparse import BlockKey, BlockSparseTensor, contract
 from .batch import execute_batched, execute_pairs, matricize_lhs, matricize_rhs
 from .decomp import DecompositionEngine
 from .envcore import EnvironmentEngine
-from .graphs import GraphCache
+from .faults import RECOVERABLE
+from .graphs import GraphCache, capturing
 from .plan import Axes, ContractionPlan, PlanCache
 
-BACKENDS = ("list", "csr", "batched")
+BACKENDS = ("list", "dense", "csr", "batched")
+# cost-model overhead charged per dispatched block GEMM, in equivalent flops
+# (the reference's value: on small blocks the per-op dispatch dominates,
+# which is why the paper's dense algorithm wins at small m, their Fig. 5)
+PAIR_OVERHEAD_FLOPS = 16384.0
+# the rungs a failed backend retries, those below it in this order, ending at
+# the seed ``contract``; the reference's ladder without its "spmd" rung,
+# which comes with multi-GPU execution (ROADMAP Queue 1 #12)
+CONTRACTION_LADDER: Tuple[str, ...] = ("csr", "batched", "dense", "list")
 # the contracted axes of the two-site matvec's four steps: A·x, ·W_j,
 # ·W_{j+1}, ·B (core/env.matvec_two_site)
 MATVEC_AXES = (((2,), (0,)), ((1, 2), (0, 2)), ((4, 1), (0, 2)), ((4, 1), (1, 2)))
@@ -47,31 +69,35 @@ def _structure(t: BlockSparseTensor):
 
 
 class ContractionEngine:
-    """Executes cached ContractionPlans through the "list", "csr" or
-    "batched" backend.
+    """Executes cached ContractionPlans through the "list", "dense", "csr"
+    or "batched" backend, or the "auto" cost model's choice per plan.
 
     ``use_kernel=False`` makes the csr and batched backends run the block
     GEMM's plain PyTorch version on every device (the "csr_ref" algorithm).
-    ``decomp`` and ``env`` are the engine's decomposition and environment
-    stages, and ``graphs`` its CUDA graph cache, shared by the jitted matvec
-    and the environment stage; each is per engine, so ``stats()`` reports
-    this run's counters.  ``stats()`` documents the units of every counter.
+    ``allow_csr`` lets "auto" choose csr.  ``pair_overhead`` is the cost
+    model's charge per dispatch.  ``decomp`` and ``env`` are the engine's
+    decomposition and environment stages, and ``graphs`` its CUDA graph
+    cache, shared by the jitted matvec and the environment stage; each is
+    per engine, so ``stats()`` reports this run's counters.  ``stats()``
+    documents the units of every counter.
     """
 
     def __init__(
         self,
-        backend: str = "list",
+        backend: str = "auto",
         cache: Optional[PlanCache] = None,
         *,
         use_kernel: bool = True,
+        allow_csr: bool = False,
+        pair_overhead: float = PAIR_OVERHEAD_FLOPS,
     ):
-        if backend not in BACKENDS:
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported yet: dense and auto are ROADMAP Queue 1 #8"
-            )
+        if backend not in BACKENDS + ("auto",):
+            raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS + ('auto',)}")
         self.backend = backend
         self.cache = cache if cache is not None else PlanCache()
         self.use_kernel = use_kernel
+        self.allow_csr = allow_csr
+        self.pair_overhead = pair_overhead
         self.graphs = GraphCache()
         self.decomp = DecompositionEngine()
         self.env = EnvironmentEngine(graphs=self.graphs)
@@ -79,6 +105,20 @@ class ContractionEngine:
         self.backend_flops: Dict[str, float] = {k: 0.0 for k in BACKENDS}
         self.backend_seconds: Dict[str, float] = {k: 0.0 for k in BACKENDS}
         self.flops_list = 0.0
+        # the degradation ladders' ledger, stage-keyed: failed first attempts
+        # and the rung that recovered each (the sweep's env and pair ladders
+        # report here too, through note_retry / note_degradation)
+        self.retries: Dict[str, int] = {}
+        self.degradations: Dict[str, int] = {}
+
+    # ------------------------------------------------------ health bookkeeping
+    def note_retry(self, stage: str) -> None:
+        """Record a failed first attempt at ``stage``."""
+        self.retries[stage] = self.retries.get(stage, 0) + 1
+
+    def note_degradation(self, stage: str) -> None:
+        """Record that ``stage`` recovered on a lower rung."""
+        self.degradations[stage] = self.degradations.get(stage, 0) + 1
 
     # ----------------------------------------------------------------- entry
     def __call__(
@@ -90,21 +130,93 @@ class ContractionEngine:
         holds it (a graph body), else it comes from the plan cache."""
         if plan is None:
             plan = self.cache.get(a, b, axes)
-        backend = self.backend
+        backend = self.backend_for(plan)
         self.backend_counts[backend] += 1
-        self.backend_flops[backend] += plan.flops_csr if backend == "csr" else plan.flops_list
+        self.backend_flops[backend] += self._plan_flops(plan, backend)
         self.flops_list += plan.flops_list
         t0 = time.perf_counter()
-        if backend == "csr":
-            out = self._execute_csr(plan, a, b)
-        elif backend == "batched":
-            out = execute_batched(plan, a, b, a_mats=a_mats, b_mats=b_mats, use_kernel=self.use_kernel)
-        else:
-            out = BlockSparseTensor(plan.out_indices, execute_pairs(plan, a.blocks, b.blocks), plan.out_charge)
+        try:
+            if backend == "batched":
+                out = self._execute_batched(plan, a, b, a_mats=a_mats, b_mats=b_mats)
+            else:
+                out = getattr(self, f"_execute_{backend}")(plan, a, b)
+        except RECOVERABLE:
+            block = next(iter(a.blocks.values()), None)
+            if block is not None and capturing(block):
+                raise  # a failed capture cannot be patched up: the capture fails
+            out = self._degraded_call(backend, plan, a, b, axes)
         self.backend_seconds[backend] += time.perf_counter() - t0
         return out
 
+    # ------------------------------------------------------------ cost model
+    def backend_for(self, plan: ContractionPlan) -> str:
+        """The backend this engine runs ``plan`` on."""
+        return self.backend if self.backend != "auto" else self.choose_backend(plan)
+
+    def choose_backend(self, plan: ContractionPlan) -> str:
+        """The reference's cost model, in equivalent flops: dense pays one
+        GEMM over the padded full dims plus a dispatch per embedded and
+        extracted block; list a GEMM dispatch per pair; batched the exact
+        pair flops plus cheaper dispatches per unique operand block
+        (matricize), per bucket (stack, GEMM, segment sum) and per output
+        slot; csr the padded flops and one launch."""
+        n_embed = plan.num_in_blocks + len(plan.out_keys)
+        cost = {
+            "list": plan.flops_list + self.pair_overhead * plan.num_pairs,
+            "dense": plan.flops_dense + self.pair_overhead * n_embed,
+        }
+        if plan.num_pairs:
+            L = plan.batched
+            n_disp = 0.5 * L.num_unique + 2.0 * L.num_buckets + 0.25 * L.num_out_slots
+            cost["batched"] = plan.flops_list + self.pair_overhead * n_disp
+        if self.allow_csr and plan.num_pairs:
+            cost["csr"] = plan.flops_csr + self.pair_overhead * plan.num_pairs * 0.25
+        return min(cost, key=cost.get)
+
+    @staticmethod
+    def _plan_flops(plan: ContractionPlan, backend: str) -> float:
+        if backend == "dense":
+            return plan.flops_dense
+        if backend == "csr":
+            return plan.flops_csr
+        return plan.flops_list
+
+    # ---------------------------------------------------- degradation ladder
+    def _degraded_call(self, failed: str, plan: ContractionPlan, a: BlockSparseTensor, b: BlockSparseTensor,
+                       axes: Axes) -> BlockSparseTensor:
+        """Retry a backend that raised a recoverable error on each rung
+        below it in ``CONTRACTION_LADDER`` (csr only with ``allow_csr``),
+        then on the seed ``contract``, whose exception propagates.  A rung
+        moves on only past a recoverable error; any other propagates.  Every
+        rung computes the same contraction on the operands' device, so a
+        recovery changes the time, not the values."""
+        self.note_retry("contraction")
+        for rung in CONTRACTION_LADDER[CONTRACTION_LADDER.index(failed) + 1:]:
+            if rung == "csr" and not self.allow_csr:
+                continue
+            try:
+                out = getattr(self, f"_execute_{rung}")(plan, a, b)
+            except RECOVERABLE:
+                continue
+            self.note_degradation(f"contraction_{rung}")
+            return out
+        out = contract(a, b, axes)
+        self.note_degradation("contraction_seed")
+        return out
+
     # -------------------------------------------------------------- backends
+    def _execute_list(self, plan: ContractionPlan, a: BlockSparseTensor, b: BlockSparseTensor) -> BlockSparseTensor:
+        return BlockSparseTensor(plan.out_indices, execute_pairs(plan, a.blocks, b.blocks), plan.out_charge)
+
+    def _execute_dense(self, plan: ContractionPlan, a: BlockSparseTensor, b: BlockSparseTensor) -> BlockSparseTensor:
+        dense = torch.tensordot(a.to_dense(), b.to_dense(), dims=(list(plan.ax_a), list(plan.ax_b)))
+        blocks = {k: dense[sl] for k, sl in plan.dense_out_slices()}
+        return BlockSparseTensor(plan.out_indices, blocks, plan.out_charge)
+
+    def _execute_batched(self, plan: ContractionPlan, a: BlockSparseTensor, b: BlockSparseTensor, *, a_mats=None,
+                         b_mats=None) -> BlockSparseTensor:
+        return execute_batched(plan, a, b, a_mats=a_mats, b_mats=b_mats, use_kernel=self.use_kernel)
+
 
     def pack_csr(self, plan: ContractionPlan, a: BlockSparseTensor, b: BlockSparseTensor):
         """The block GEMM's operands for this contraction: ``(lhs, rhs,
@@ -149,34 +261,39 @@ class ContractionEngine:
         return self(t, B, ax4, b_mats=mB, plan=p4)        # (i, so1, so2, i')
 
     @staticmethod
-    def _fixed_operand_mats(A, Wj, Wj1, B):
-        """Matricized fixed Davidson operands for the batched backend.
+    def _fixed_operand_mats(A, Wj, Wj1, B, steps=(True,) * 4):
+        """Matricized fixed Davidson operands for the batched backend, for
+        the matvec steps flagged in ``steps`` (None for the others).
 
         The matricization axes are static per matvec step (A contracts its
         mode 2 in step 1; W_j and W_{j+1} contract modes (0, 2); B contracts
         modes (1, 2)), so these 2-D forms never depend on x's structure.
         """
-        return (
-            matricize_lhs(A, (0, 1), (2,)),
-            matricize_rhs(Wj, (1, 3), (0, 2)),
-            matricize_rhs(Wj1, (1, 3), (0, 2)),
-            matricize_rhs(B, (0,), (1, 2)),
+        forms = (
+            lambda: matricize_lhs(A, (0, 1), (2,)),
+            lambda: matricize_rhs(Wj, (1, 3), (0, 2)),
+            lambda: matricize_rhs(Wj1, (1, 3), (0, 2)),
+            lambda: matricize_rhs(B, (0,), (1, 2)),
         )
+        return tuple(form() if on else None for form, on in zip(forms, steps))
 
     def matvec_fn(self, A, Wj, Wj1, B, jit: bool = False) -> Callable[[BlockSparseTensor], BlockSparseTensor]:
         """Davidson matvec closure over the fixed operands.
 
-        ``jit=False`` runs it eagerly (the batched backend matricizes the
-        fixed operands once, here).  ``jit=True`` replays one CUDA graph per
-        structure of (A, W_j, W_{j+1}, B, x) through ``self.graphs``: the
-        fixed operands are staged once per closure, x once per call, and the
-        graph matricizes and contracts them (on the CPU the same pipeline
-        runs eagerly).  Each graph's entry holds the four plans it reads, so
-        their device tables live as long as the graph, whatever the plan
-        cache evicts.
+        ``jit=False`` runs it eagerly (the batched and auto backends
+        matricize the fixed operands once, here, as the reference does).
+        ``jit=True`` replays one CUDA graph per structure of (A, W_j,
+        W_{j+1}, B, x) through ``self.graphs``: the fixed operands are
+        staged once per closure, x once per call, and the graph matricizes
+        and contracts them (on the CPU the same pipeline runs eagerly).
+        Under "auto" each of the four steps runs on the backend that
+        ``choose_backend`` gives its plan, in the graph as eagerly; the
+        graph matricizes the fixed operand of a batched step only.  Each
+        graph's entry holds the four plans it reads, so their device tables
+        live as long as the graph, whatever the plan cache evicts.
         """
         if not jit:
-            mats = self._fixed_operand_mats(A, Wj, Wj1, B) if self.backend == "batched" else None
+            mats = self._fixed_operand_mats(A, Wj, Wj1, B) if self.backend in ("batched", "auto") else None
             return lambda x: self.two_site_matvec(A, Wj, Wj1, B, x, mats=mats)
 
         ops = (A, Wj, Wj1, B)
@@ -195,7 +312,8 @@ class ContractionEngine:
                     for t, keys in zip(ops, op_keys)
                 )
                 x_ = BlockSparseTensor(x.indices, dict(zip(x_keys, live_views)), x.charge)
-                mats = self._fixed_operand_mats(A_, Wj_, Wj1_, B_) if self.backend == "batched" else None
+                steps = [self.backend_for(p) == "batched" for p in plans]
+                mats = self._fixed_operand_mats(A_, Wj_, Wj1_, B_, steps)
                 y = self.two_site_matvec(A_, Wj_, Wj1_, B_, x_, mats=mats, plans=plans)
                 return [y.blocks[k] for k in sorted(y.blocks)]
 
@@ -214,21 +332,26 @@ class ContractionEngine:
         return call
 
     def _prepare_chain(self, x, ops, device) -> Tuple[ContractionPlan, ...]:
-        """The four step plans of ``two_site_matvec`` on x's structure, with
-        their layouts' index tables and work lists on ``device`` (before a
-        graph capture, which cannot copy from the host)."""
+        """The four step plans of ``two_site_matvec`` on x's structure, each
+        with what the backend it runs on reads from the host ready: the
+        layout's index tables and work lists on ``device`` (before a graph
+        capture, which cannot copy from the host), or the dense layout's
+        output slices."""
         A, Wj, Wj1, B = ops
         t, plans = x, []
         for i, axes in enumerate(MATVEC_AXES):
             a, b = (A, t) if i == 0 else (t, ops[i])
             plan = self.cache.get(a, b, axes)
-            if plan.pairs and self.backend == "batched":
+            backend = self.backend_for(plan)
+            if plan.pairs and backend == "batched":
                 plan.batched.device_tables(device)
                 for bucket in plan.batched.buckets:
                     bucket.work.tables(device)
-            elif plan.pairs and self.backend == "csr":
+            elif plan.pairs and backend == "csr":
                 plan.csr.device_tables(device)
                 plan.csr.work.tables(device)
+            elif backend == "dense":
+                plan.dense_out_slices()
             t = BlockSparseTensor(plan.out_indices, dict.fromkeys(plan.out_keys), plan.out_charge)
             plans.append(plan)
         return tuple(plans)
@@ -256,16 +379,20 @@ class ContractionEngine:
 
         ``backend_counts``: contractions executed per backend.
         ``backend_flops``: flops each backend executed — the exact pair flops
-        for "list" and "batched", the padded ``P*2*BM*BK*BN`` for "csr".
+        for "list" and "batched", the padded ``P*2*BM*BK*BN`` for "csr", the
+        full dense GEMM's for "dense".
         ``flops_list``: the exact pair flops of every contraction, whatever
         the backend.  ``backend_seconds``: host wall-clock per backend in
         seconds; on the card this is enqueue time, since kernels run
         asynchronously.  A CUDA graph runs its contractions without calling
         the engine, so with ``jit_matvec`` on the card these counters cover
         the capture of each structure, not its replays (as the reference's
-        count traces, not executions).  ``graphs``: the graph
-        cache (``GraphCache.stats``); ``decomp`` and ``env``: the
-        decomposition and environment stages.
+        count traces, not executions).  ``retries`` / ``degradations``:
+        the ladders' ledger, stage-keyed counts of failed first attempts and
+        of the rung that recovered each ("contraction_<backend>",
+        "contraction_seed", "env_seed", "pair_seed"); both empty on a
+        healthy run.  ``graphs``: the graph cache (``GraphCache.stats``);
+        ``decomp`` and ``env``: the decomposition and environment stages.
         """
         return {
             "plan_cache": self.cache.stats(),
@@ -273,6 +400,8 @@ class ContractionEngine:
             "backend_flops": dict(self.backend_flops),
             "backend_seconds": dict(self.backend_seconds),
             "flops_list": self.flops_list,
+            "retries": dict(self.retries),
+            "degradations": dict(self.degradations),
             "graphs": self.graphs.stats(),
             "decomp": self.decomp.stats(),
             "env": self.env.stats(),

@@ -31,7 +31,9 @@ import torch
 
 from ..tensor.blocksparse import BlockSparseTensor
 from ..tensor.qn import Index
+from . import faults
 from .batch import execute_pairs, pad_block_sparse, unpad_block_sparse
+from .faults import FaultInjected
 from .graphs import GraphCache
 from .plan import EnvironmentPlan, EnvPlanCache
 
@@ -99,6 +101,11 @@ class EnvironmentEngine:
         return self._update("right", B, T, W, mpo_padded)
 
     def _update(self, side, env, T, W, mpo_padded=None) -> BlockSparseTensor:
+        # fault point: an exception out of the fused update, standing in
+        # for a capture or launch failure; raised before any work, so the
+        # caller's three-call fallback starts from a clean slate
+        if faults.fire("env.exception") is not None:
+            raise FaultInjected("env.exception", "fused environment update failed")
         t0 = time.perf_counter()
         if self.pad:
             env_p, T_p = pad_block_sparse(env), pad_block_sparse(T)

@@ -47,6 +47,7 @@ checks the outputs against ``prepare``'s shapes.
 """
 from __future__ import annotations
 
+import gc
 import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tuple
@@ -59,6 +60,12 @@ Body = Callable[[List[torch.Tensor], List[torch.Tensor], Any], Sequence[torch.Te
 Prepare = Callable[[], Tuple[Sequence[Tuple[int, ...]], Any, Any]]
 # structures kept, least recently used evicted first
 MAX_GRAPHS = 256
+
+
+def capturing(t: torch.Tensor) -> bool:
+    """Whether work on ``t`` is being captured into a CUDA graph now (never
+    on the CPU, where the query does not exist)."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
 def _layout(shapes) -> Tuple[Tuple[Tuple[int, ...], ...], Tuple[int, ...], int]:
@@ -211,18 +218,27 @@ class GraphCache:
         reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(s), kernels.recording() as tally:
-            graph.capture_begin(self._pool)
-            try:
-                self._write_out(entry, body(fixed_v, live_v, entry.keep), out)
-            except BaseException:
+        # no cyclic garbage collection during the capture: freeing another
+        # graph (an engine that became garbage) while a stream captures
+        # invalidates the capture
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(s), kernels.recording() as tally:
+                graph.capture_begin(self._pool)
                 try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass  # the capture was already invalidated; report the cause
-                raise
-            t1 = time.perf_counter()
-            graph.capture_end()
+                    self._write_out(entry, body(fixed_v, live_v, entry.keep), out)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture was already invalidated; report the cause
+                    raise
+                t1 = time.perf_counter()
+                graph.capture_end()
+        finally:
+            if gc_was_enabled:
+                gc.enable()
         cur.wait_stream(s)
         t2 = time.perf_counter()
         self.capture_seconds += t2 - t0

@@ -195,8 +195,11 @@ class ContractionPlan:
     pairs: Tuple[Tuple[BlockKey, BlockKey, BlockKey], ...]
     out_keys: Tuple[BlockKey, ...]        # unique output keys, first-seen order
     flops_list: float                     # sum over pairs of 2*M*K*N
+    flops_dense: float                    # one dense tensordot over the full dims
+    num_in_blocks: int = 0                # len(a.blocks) + len(b.blocks)
     _csr: Optional[CsrLayout] = None
     _batched: Optional[BatchedLayout] = None
+    _dense_out_slices: Optional[Tuple[Tuple[BlockKey, Tuple[slice, ...]], ...]] = None
 
     @staticmethod
     def build(a: BlockSparseTensor, b: BlockSparseTensor, axes: Axes) -> "ContractionPlan":
@@ -231,6 +234,9 @@ class ContractionPlan:
                 k = _prod(a.indices[i].sector_dim(ka[i]) for i in ax_a)
                 n = _prod(b.indices[i].sector_dim(kb[i]) for i in keep_b)
                 flops_list += 2.0 * m * k * n
+        dense_m = _prod(a.indices[i].dim for i in keep_a)
+        dense_k = _prod(a.indices[i].dim for i in ax_a)
+        dense_n = _prod(b.indices[i].dim for i in keep_b)
         return ContractionPlan(
             signature=plan_signature(a, b, axes),
             ax_a=ax_a,
@@ -242,6 +248,8 @@ class ContractionPlan:
             pairs=tuple(pairs),
             out_keys=tuple(out_keys),
             flops_list=flops_list,
+            flops_dense=2.0 * dense_m * dense_k * dense_n,
+            num_in_blocks=len(a.blocks) + len(b.blocks),
         )
 
     @staticmethod
@@ -344,6 +352,17 @@ class ContractionPlan:
         if self._batched is None:
             self._batched = self._build_batched()
         return self._batched
+
+    def dense_out_slices(self) -> Tuple[Tuple[BlockKey, Tuple[slice, ...]], ...]:
+        """Every charge-legal output block and its slice of the dense
+        result, as ``BlockSparseTensor.from_dense`` extracts them (zero
+        blocks included); enumerated at the first dense execution and kept
+        on the plan."""
+        if self._dense_out_slices is None:
+            probe = BlockSparseTensor(self.out_indices, {}, self.out_charge)
+            offs = [ix.offsets() for ix in self.out_indices]
+            self._dense_out_slices = tuple((k, probe._slices(k, offs)) for k in probe.valid_keys())
+        return self._dense_out_slices
 
     @property
     def csr(self) -> CsrLayout:

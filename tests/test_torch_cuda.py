@@ -6,6 +6,8 @@ that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -687,3 +689,129 @@ def test_batched_jit_run_on_card_matches_csr(card):
     assert sum(sum(s.block_gemm_launches.values()) for s in res.sweep_stats) > 0
     assert abs(res.energy - e_csr) < 1e-10
     assert abs(res.energy - ground_energy(sp, terms, 6, charge=(0,))) <= 1e-8
+
+
+# ------------------------------------------------- the engine front door
+def test_auto_graphed_matvec_matches_eager(card):
+    """Under "auto" the graphed matvec routes each step by the cost model's
+    choice (on DMRG structures, list: the batched dispatch charge exceeds
+    the pair count) and equals the eager matvec to 1e-12 relative on every
+    replay; no ladder recovers anything."""
+    from repro_torch.dist.engine import ContractionEngine
+
+    _, _, _, (A, Wj, Wj1, B, x) = _padded_middle_operator(card)
+    engine = ContractionEngine("auto")
+    mv = engine.matvec_fn(A, Wj, Wj1, B, jit=True)
+    got = [mv(x) for _ in range(3)]
+    steps = [engine.backend_for(p) for p in engine._prepare_chain(x, (A, Wj, Wj1, B), card)]
+    assert engine.graphs.captures == 1 and engine.graphs.replays == 3
+    assert engine.backend_counts == {b: steps.count(b) for b in engine.backend_counts}
+    want = engine.matvec_fn(A, Wj, Wj1, B, jit=False)(x)
+    assert max(_bst_rel_err(y, want) for y in got) <= 1e-12
+    assert engine.retries == {} and engine.degradations == {}
+
+
+def _many_partner_operands(card):
+    """Two order-3 tensors whose blocks each meet several partners in few
+    shape buckets, contracted over one mode."""
+    from repro_torch.tensor.blocksparse import BlockSparseTensor
+    from repro_torch.tensor.qn import Index
+
+    rng = np.random.default_rng(0)
+
+    def sec():
+        return tuple(((q,), int(rng.integers(1, 3))) for q in range(-2, 3))
+
+    sx, sy, ss, sz, sw = (sec() for _ in range(5))
+    g = torch.Generator(device=card).manual_seed(0)
+    a = BlockSparseTensor.random([Index(sx, 1), Index(sy, -1), Index(ss, 1)], (0,), generator=g)
+    b = BlockSparseTensor.random([Index(ss, -1), Index(sz, 1), Index(sw, -1)], (0,), generator=g)
+    return a, b, ((2,), (0,))
+
+
+def test_auto_launches_the_block_gemm_where_it_chooses_batched(card):
+    """A contraction whose blocks each meet several partners in few shape
+    buckets: "auto" chooses batched and launches the block GEMM on it, equal
+    to the list backend to 1e-12 relative."""
+    from repro_torch.dist.engine import ContractionEngine
+
+    a, b, ax = _many_partner_operands(card)
+    engine = ContractionEngine("auto")
+    assert engine.choose_backend(engine.cache.get(a, b, ax)) == "batched"
+    before = kernels.LAUNCHES["block_gemm"]
+    got = engine(a, b, ax)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["block_gemm"] > before and engine.backend_counts["batched"] == 1
+    assert _bst_rel_err(got, ContractionEngine("list")(a, b, ax)) <= 1e-12
+
+
+@pytest.mark.parametrize("failure", ["build", "launch"])
+@pytest.mark.parametrize("backend", ["batched", "csr"])
+def test_block_gemm_failure_propagates_through_the_engine(card, monkeypatch, backend, failure):
+    """A block GEMM that does not build, or whose launch returns an error,
+    raises out of the engine on the card: no ladder rung computes the
+    contraction on a library path in its place, and nothing is counted."""
+    from repro_torch.dist.engine import ContractionEngine
+    from repro_torch.kernels.block_gemm import ops
+
+    class Failing:
+        @staticmethod
+        def block_gemm_launch(*args):
+            return 1  # cudaErrorInvalidValue, returned before any work is queued
+
+    def library():
+        if failure == "build":
+            raise RuntimeError("nvcc failed")
+        return Failing
+
+    a, b, ax = _many_partner_operands(card)
+    monkeypatch.setattr(ops, "_library", library)
+    engine = ContractionEngine(backend)
+    with pytest.raises(RuntimeError, match="nvcc failed" if failure == "build" else "launch failed"):
+        engine(a, b, ax)
+    assert engine.retries == {} and engine.degradations == {}
+
+
+def test_gemm_nan_does_not_fire_inside_a_capture(card):
+    """The batch.gemm_nan hook is skipped while a graph is captured (and a
+    replay runs no Python), so a graphed matvec stays finite under an armed
+    fault; an eager call fires it."""
+    from repro_torch.dist import faults
+    from repro_torch.dist.engine import ContractionEngine
+
+    _, _, _, (A, Wj, Wj1, B, x) = _padded_middle_operator(card)
+    engine = ContractionEngine("batched")
+    faults.registry.clear()
+    try:
+        with faults.inject("batch.gemm_nan", count=math.inf) as f:
+            ys = [engine.matvec_fn(A, Wj, Wj1, B, jit=True)(x) for _ in range(2)]
+            assert f.fired == 0 and engine.graphs.captures == 1
+            assert all(torch.isfinite(b).all() for y in ys for b in y.blocks.values())
+            bad = engine.matvec_fn(A, Wj, Wj1, B, jit=False)(x)
+            assert f.fired > 0 and any(torch.isnan(b).any() for b in bad.blocks.values())
+    finally:
+        faults.registry.clear()
+    assert _bst_rel_err(ys[0], engine.matvec_fn(A, Wj, Wj1, B, jit=False)(x)) <= 1e-12
+
+
+def test_clean_auto_run_has_every_ladder_counter_zero(card):
+    """run_dmrg(algo="auto", jit_matvec=True) on the card reaches ED on the
+    3x2 case, and no ladder absorbed anything: a fault a ladder recovered
+    would show in these counters."""
+    from repro_torch.core import DMRGEngine, ground_energy
+    from repro_torch.core.models import heisenberg_j1j2_terms
+    from repro_torch.core.mpo import build_mpo, compress_mpo
+    from repro_torch.core.mps import neel_states, product_state_mps
+    from repro_torch.core.siteops import spin_half_space
+
+    sp, terms = spin_half_space(), heisenberg_j1j2_terms(3, 2, 1.0, 0.5, cylinder=False)
+    mpo = compress_mpo(build_mpo(sp, terms, 6, device=card), cutoff=1e-13)
+    eng = DMRGEngine(product_state_mps(sp, neel_states(sp, 6), device=card), mpo, algo="auto", jit_matvec=True,
+                     davidson_iters=6, device=card)
+    stats = [eng.sweep(max_bond=m) for m in (8, 8, 16, 16)]
+    st = eng.contract_fn.stats()
+    assert st["retries"] == {} and st["degradations"] == {}
+    assert st["decomp"]["retries"] == 0 and not any(st["decomp"]["degradations"].values())
+    assert all(s.pair_retries == 0 for s in stats)
+    assert sum(s.graphs["graph_replays"] for s in stats) > 0
+    assert abs(stats[-1].energy - ground_energy(sp, terms, 6, charge=(0,))) <= 1e-8

@@ -126,8 +126,6 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("kwargs", [
     dict(spmd=True), dict(shard_policy=object()), dict(plan_store="store"),
-    dict(checkpoint_dir="ckpt"), dict(algo="dense"), dict(algo="auto"),
-    dict(algo="planned"), dict(algo="dense_unplanned"), dict(algo="csr_unplanned"),
 ])
 def test_unported_arguments_raise(kwargs):
     """Arguments of the reference API that the port lacks are refused, never
@@ -143,13 +141,17 @@ def test_unported_arguments_raise(kwargs):
 @pytest.mark.parametrize("kwargs", [
     dict(algo="batched", jit_matvec=True), dict(algo="list", pad_matvec=True),
     dict(algo="batched", svd_method="svd"), dict(algo="csr", jit_env=True), dict(algo="batched"),
+    dict(algo="dense"), dict(algo="auto"), dict(algo="planned"), dict(algo="dense_unplanned"),
+    dict(algo="csr_unplanned"), dict(algo="auto", checkpoint_dir="ckpt"),
 ])
-def test_ported_arguments_are_accepted(kwargs):
+def test_ported_arguments_are_accepted(kwargs, tmp_path):
     """The engine options this port carries run, and reach ED on a 4-site
     chain."""
     from repro_torch.core import ground_energy, run_dmrg
     from repro_torch.core.models import heisenberg_chain_system
 
     space, terms = heisenberg_chain_system(4)
+    if "checkpoint_dir" in kwargs:
+        kwargs = dict(kwargs, checkpoint_dir=str(tmp_path / kwargs["checkpoint_dir"]))
     res = run_dmrg(space, terms, 4, bond_schedule=(4,), davidson_iters=4, device="cpu", **kwargs)
     assert abs(res.energy - ground_energy(space, terms, 4)) < 1e-8
