@@ -81,7 +81,20 @@ Phases (any failure exits non-zero):
   15. observables: Sz, SzSz and S+S- on the 3x2 case against ED (1e-8); on
      the 8x4 auto ground state the sum of <Sz_i> against the state's total
      charge (1e-8) and correlation_profile("Sz", "Sz", ref=0) timed;
-  16. summary lines, then {"ok": true, "device": {...}} as the last line.
+  16. the serving path, DMRG-as-a-service: a J1-J2 ladder scan of 16 rungs
+     (32 sites, J1=1, J2 over 0.30:0.65 in 8 steps, max_bond 256: bonds 8
+     ... 256, two sweeps each, davidson_iters=6, f64), one slot of 8 through
+     DMRGService(max_batch=8) warmed on the scan's own problems at slot size
+     8: problems/s, solve seconds, seconds per sweep and per stage, block
+     GEMM launches by variant, captures during and after warmup, peak
+     memory; asserts launches > 0, zero captures after warmup, every
+     recovery counter zero, and |dE| < 1e-10 against run_dmrg(algo="batched",
+     jit_matvec=True) for the first and last J2; on the middle bond's
+     stacked matvec, the largest folded bucket launch against its plain
+     version (1e-12 relative) and against 8 per-problem launches (1e-13),
+     timed beside their total and bmm + index_add_; then the README's CLI
+     quickstart with --check as a subprocess;
+  17. summary lines, then {"ok": true, "device": {...}} as the last line.
 Needs a CUDA card; exits non-zero without one, printing no result.
 """
 from __future__ import annotations
@@ -90,6 +103,7 @@ import argparse
 import contextlib
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -126,6 +140,13 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the reference's 2e-4 (tests/test_kernels.py); bf16 inputs are computed in
 # float32 by both, so bf16 adds only the output's own rounding.
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+# The served scan of phase 16: the J1-J2 ladder (Ly=2 strip of the paper's
+# spins model) at 16 rungs, the J2 values of one slot, the largest bond.
+SERVE_MODEL, SERVE_SITES, SERVE_BOND = "j1j2_ladder", 32, 256
+SERVE_J2 = tuple(float(j) for j in np.linspace(0.30, 0.65, 8))
+# The README's CLI quickstart, run with --check on the card.
+SERVE_CLI = ["--model", "heisenberg", "--n-sites", "8", "--max-bond", "16", "--sweep", "J=0.8:1.2:4",
+             "--sweep", "h=0.2:0.4:2", "--batch", "4", "--check"]
 # Full-width logits with the weights cast to float32, kernel path vs plain
 # path, per token: max over (b, s) of ||got - want|| / ||want|| over the
 # vocabulary.  The control that must read above it: the plain path with the
@@ -1155,6 +1176,157 @@ def observables(dev, res, space):
     return rec
 
 
+# ---------------------------------------------------------------- phase 16
+def serve_path(dev):
+    """The served J1-J2 ladder scan (see phase 16 above): the slot, its
+    checks against single runs, the folded launch on the middle bond, and
+    the CLI quickstart."""
+    from repro_torch import kernels
+    from repro_torch.core import run_dmrg
+    from repro_torch.dist.batch import bucket_operands, matricize_lhs, matricize_rhs
+    from repro_torch.dist.engine import MATVEC_AXES
+    from repro_torch.kernels.block_gemm.ops import block_sparse_matmul
+    from repro_torch.kernels.block_gemm.ref import block_sparse_matmul_ref
+    from repro_torch.kernels.block_gemm.work import variant
+    from repro_torch.core.env import left_edge, right_edge
+    from repro_torch.serve import DMRGService, ProblemSpec, build_problem, group_key
+    from repro_torch.serve.stacked import broadcast_tensor, pad_stacked, unstack_tensor
+    from repro_torch.tensor.blocksparse import BlockSparseTensor
+
+    specs = [ProblemSpec.make(SERVE_MODEL, SERVE_SITES, J1=1.0, J2=j, max_bond=SERVE_BOND) for j in SERVE_J2]
+    built = [build_problem(sp) for sp in specs]
+    if len({group_key(sp, mpo) for sp, (_, mpo) in zip(specs, built)}) != 1:
+        fail("the J2 scan spans more than one batch group")
+    nb, n_sweeps = len(specs), len(specs[0].bond_schedule) * specs[0].sweeps_per_bond
+    rec = dict(model=SERVE_MODEL, n_sites=SERVE_SITES, max_bond=SERVE_BOND, J2=SERVE_J2,
+               bond_schedule=specs[0].bond_schedule, sweeps=n_sweeps, davidson_iters=specs[0].davidson_iters)
+    svc = DMRGService(max_batch=nb, batch_wait_s=600.0, device=dev)
+    try:
+        t0 = time.perf_counter()
+        warm = svc.warmup(specs, sizes=(nb,))[-1]
+        torch.cuda.synchronize()
+        rec.update(warmup_s=time.perf_counter() - t0, warmup_captures=svc.ops.retraces,
+                   warmup_graphs=svc.ops.engine.graphs.stats())
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rids = [svc.submit(sp) for sp in specs]
+        recs = [svc.result(r, timeout=1800) for r in rids]
+        rec["slot_wall_s"] = time.perf_counter() - t0
+        launches, variants = dict(kernels.LAUNCHES), dict(kernels.VARIANT_LAUNCHES["block_gemm"])
+        st = svc.stats()
+    finally:
+        svc.shutdown()
+    rec.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches, variant_launches=variants,
+               energies=[r["energy"] for r in recs], batch_sizes=[r["batch_size"] for r in recs],
+               problems_per_s=st["problems_per_sec"], solve_s=st["solve_seconds"],
+               sweep_s=st["solve_seconds"] / n_sweeps, stage_s=st["stage_seconds"],
+               stage_per_sweep_s={k: v / n_sweeps for k, v in st["stage_seconds"].items()},
+               captures_after_warmup=st["retraces"], davidson=st["davidson"], fill=st["batch_fill_ratio"],
+               ledger={k: st[k] for k in ("completed", "failed", "retries", "bisections", "worker_restarts",
+                                          "unrecovered_errors")}, ladders=st["ladders"])
+    log("  served slot " + json.dumps({k: v for k, v in rec.items() if k != "warmup_graphs"}))
+    ld = st["ladders"]
+    if (st["completed"] != nb or st["failed"] or st["retries"] or st["bisections"] or st["worker_restarts"]
+            or st["unrecovered_errors"] or ld["retries"] or ld["degradations"] or ld["svd_retries"]
+            or any(ld["svd_degradations"].values())):
+        fail(f"served slot: recovery ledger {rec['ledger']}, ladders {ld}")
+    if rec["batch_sizes"] != [nb] * nb or not all(np.isfinite(rec["energies"])):
+        fail(f"served slot: batch sizes {rec['batch_sizes']}, energies {rec['energies']}")
+    if st["retraces"] != 0:
+        fail(f"served slot captured {st['retraces']} graphs after warmup")
+    if launches["block_gemm"] == 0:
+        fail("the served slot launched no block GEMM")
+
+    # the first and last J2 alone, against the batch
+    singles = []
+    for b in (0, nb - 1):
+        space, mpo = built[b]
+        mpo = [BlockSparseTensor(w.indices, {k: v.to(dev) for k, v in w.blocks.items()}, w.charge) for w in mpo]
+        t0 = time.perf_counter()
+        r = run_dmrg(space, None, SERVE_SITES, bond_schedule=specs[b].bond_schedule,
+                     sweeps_per_bond=specs[b].sweeps_per_bond, davidson_iters=specs[b].davidson_iters,
+                     cutoff=specs[b].cutoff, mpo=mpo, algo="batched", jit_matvec=True, device=dev)
+        singles.append(dict(J2=SERVE_J2[b], energy=r.energy, abs_diff=abs(r.energy - rec["energies"][b]),
+                            seconds=time.perf_counter() - t0, ladder=assert_no_recovery(f"single J2={SERVE_J2[b]}", r)))
+    rec["singles"] = singles
+    log("  singles " + json.dumps(singles))
+    if not all(x["abs_diff"] < 1e-10 for x in singles):
+        fail(f"served energies vs single runs: {singles}")
+
+    # the largest folded bucket of the middle bond's stacked matvec (the
+    # warmup solve ends in the served slot's state)
+    ops, eng = warm.engine.ops, warm.engine
+    T, W, n = eng.T, eng.W, SERVE_SITES
+    j = n // 2 - 1
+    A = broadcast_tensor(left_edge(T[0], W[0]), nb)
+    for i in range(j):
+        A = ops.env_update("left", A, T[i], W[i])
+    Bx = broadcast_tensor(right_edge(T[n - 1], W[n - 1]), nb)
+    for i in range(n - 2, j, -1):
+        Bx = ops.env_update("right", Bx, T[i + 1], W[i + 1])
+    A, Wj, Wj1, Bx, x = (pad_stacked(t) for t in (A, W[j], W[j + 1], Bx, ops.contract(T[j], T[j + 1], ((2,), (0,)))))
+    best, t = None, x
+    for i, axes in enumerate(MATVEC_AXES):
+        a, b = (A, t) if i == 0 else (t, (Wj, Wj1, Bx)[i - 1])
+        plan = ops.engine.cache.get(a, b, axes)
+        for bi, bucket in enumerate(plan.batched.buckets):
+            flops = 2.0 * nb * len(bucket.oi) * bucket.m * bucket.k * bucket.n
+            if best is None or flops > best[0]:
+                best = (flops, i, bi, bucket, plan, a, b)
+        t = ops.contract(a, b, axes)
+    flops, step, bi, bucket, plan, a, b = best
+    O = len(bucket.out_keys)
+    oi = plan.batched.device_tables(dev, nb)[bi]
+    lhs, rhs = bucket_operands(bucket, matricize_lhs(a, plan.keep_a, plan.ax_a), matricize_rhs(b, plan.keep_b, plan.ax_b))
+    work = bucket.folded_work(nb)
+    got = block_sparse_matmul(lhs, rhs, oi, nb * O, work=work)
+    err, rel = rel_err(got, block_sparse_matmul_ref(lhs, rhs, oi, nb * O))
+    one_oi = plan.batched.device_tables(dev)[bi]
+    per = []
+    for p in range(nb):
+        l1, r1 = bucket_operands(bucket, matricize_lhs(unstack_tensor(a, p), plan.keep_a, plan.ax_a),
+                                 matricize_rhs(unstack_tensor(b, p), plan.keep_b, plan.ax_b))
+        per.append((l1, r1))
+    sep = torch.stack([block_sparse_matmul(l1, r1, one_oi, O, work=bucket.work) for l1, r1 in per])
+    scale = max(got.abs().max().item(), 1e-300)
+    sep_rel = (got.view(nb, O, bucket.m, bucket.n) - sep).abs().max().item() / scale
+    if not rel <= TOL[torch.float64] or not sep_rel <= 1e-13:
+        fail(f"folded bucket: vs plain {rel:.3e}, vs per-problem launches {sep_rel:.3e}")
+    idx = oi.long()
+
+    def library():
+        return torch.zeros((nb * O, bucket.m, bucket.n), dtype=lhs.dtype, device=dev).index_add_(0, idx, torch.bmm(lhs, rhs))
+
+    def separate():
+        for l1, r1 in per:
+            block_sparse_matmul(l1, r1, one_oi, O, work=bucket.work)
+
+    nbytes = lhs.element_size() * (lhs.numel() + rhs.numel() + nb * O * bucket.m * bucket.n) + 4 * len(idx)
+    row = dict(step=step, B=nb, P=len(bucket.oi), M=bucket.m, K=bucket.k, N=bucket.n, O=O,
+               variant=variant(work.route, lhs.dtype), max_abs_err=err, rel_err=rel, per_problem_rel_err=sep_rel,
+               flops=flops, bytes=nbytes,
+               **timed(dict(ms=lambda: block_sparse_matmul(lhs, rhs, oi, nb * O, work=work),
+                            plain_ms=lambda: block_sparse_matmul_ref(lhs, rhs, oi, nb * O),
+                            library_ms=library, separate_ms=separate),
+                       dict(ms=20, plain_ms=20, library_ms=20, separate_ms=20)),
+               **bound(flops, PEAK_FLOPS[lhs.dtype], nbytes))
+    log("  largest folded bucket " + json.dumps(row))
+    rec["largest_folded_bucket"] = row
+    del warm, eng, ops, T, W, A, Bx, x, t, a, b, lhs, rhs, per
+
+    # the CLI quickstart on the card, in its own process
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.serve", *SERVE_CLI], cwd=ROOT, capture_output=True,
+                          text=True, timeout=900, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    rec["cli"] = dict(returncode=proc.returncode, seconds=time.perf_counter() - t0,
+                      tail=proc.stdout.strip().splitlines()[-4:])
+    log("  cli " + json.dumps(rec["cli"]))
+    if proc.returncode != 0 or "CHECK OK" not in proc.stdout:
+        fail(f"serve CLI --check exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    return rec
+
+
 def timed(fns, reps):
     """Each function's time, the faster of two interleaved CUDA-event means."""
     runs = {k: [] for k in fns}
@@ -1318,14 +1490,20 @@ def main():
     record["observables"] = observables(dev, auto_res, space)
     del auto_res
 
-    # ---- phase 16: summary
+    # ---- phase 16: the serving path
+    log(f"phase 16: DMRG-as-a-service, {SERVE_MODEL} {SERVE_SITES} sites m={SERVE_BOND}, one slot of "
+        f"{len(SERVE_J2)} J2 values; then the CLI quickstart with --check")
+    record["serve"] = served = serve_path(dev)
+
+    # ---- phase 17: summary
     total = lambda k: sum(r[k] for r in mid)
     bound_ops = sum(r["bound_ms"] for r in mid if r["bound_by"] == "operations")
     bucket = planned["largest_bucket"]
     entries = [dict(
         name="block_gemm", route="cuda", source="src/repro_torch/kernels/block_gemm/block_gemm.cu",
         replaces="src/repro/kernels/block_gemm/kernel.py:59",
-        launches=launches["block_gemm"] + planned["launches"]["block_gemm"] + auto["launches"]["block_gemm"],
+        launches=(launches["block_gemm"] + planned["launches"]["block_gemm"] + auto["launches"]["block_gemm"]
+                  + served["launches"]["block_gemm"]),
         max_abs_err=max([r["max_abs_err"] for r in mid] + [bucket["max_abs_err"]]), ms=total("ms"),
         plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
         bound_by="operations" if bound_ops >= total("bound_ms") / 2 else "bytes",
@@ -1337,7 +1515,11 @@ def main():
                    **{k: bucket[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}),
                "auto with graphs (phase 11; the cost model's batched choices only)": dict(
                    launches=auto["launches"]["block_gemm"], variants=auto["variant_launches"],
-                   backend_counts=auto["backend_counts"])},
+                   backend_counts=auto["backend_counts"]),
+               "serve (phase 16; ms etc.: the largest folded bucket of the middle-bond stacked matvec)": dict(
+                   launches=served["launches"]["block_gemm"], variants=served["variant_launches"],
+                   **{k: served["largest_folded_bucket"][k] for k in
+                      ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "separate_ms", "max_abs_err")})},
     )]
     for name, arch, replaces in (
         ("flash_attention", "llama3_8b", "src/repro/kernels/flash_attention/kernel.py:70"),
@@ -1380,6 +1562,14 @@ def main():
         f"(dense vs batched {dvb['dense_vs_batched_rel_err']:.2e}); faults recovered "
         f"{[p for p in record['faults'] if '.' in p]}; resume bitwise {res14['bitwise_equal']} "
         f"(max |dE| {max(res14['abs_diffs']):.2e}); correlation profile {record['observables']['profile_s']:.2f} s")
+    fb = served["largest_folded_bucket"]
+    single_diffs = ", ".join(f"{x['abs_diff']:.1e}" for x in served["singles"])
+    log(f"serve: {served['problems_per_s']:.3f} problems/s ({served['solve_s']:.1f} s solve, {served['sweep_s']:.2f} s "
+        f"a sweep; stages per sweep {json.dumps({k: round(v, 3) for k, v in served['stage_per_sweep_s'].items()})}), "
+        f"block_gemm {served['variant_launches']}, captures {served['warmup_captures']} in warmup and "
+        f"{served['captures_after_warmup']} after, peak {served['peak_gib']:.2f} GiB; singles |dE| {single_diffs}; "
+        f"folded bucket {fb['ms']:.4f} ms (8 separate {fb['separate_ms']:.4f}, bmm + index_add_ "
+        f"{fb['library_ms']:.4f}, bound {fb['bound_ms']:.4f}); CLI {served['cli']['seconds']:.1f} s")
     log(f"total {record['total_s']:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -26,6 +26,17 @@ the order of accumulation (<=1e-13 on random f64 tensors,
 from it once the layout's tables are on the card
 (``BatchedLayout.device_tables``, the buckets' work lists), so the bucket
 loop can be captured into a CUDA graph.
+
+Stacked tensors (``serve/stacked.py``): B problems of one block structure
+carry ``[B, ...]`` blocks, one leading axis more than their indices have
+modes.  Everything here takes them as they come: matricizing gives
+``[B, r, c]``, and a bucket folds the problem axis into the block GEMM's
+pair axis -- ``lhs [B*P, m, k]``, ``rhs [B*P, k, n]``, pair ``b*P + p``
+writing output slot ``oi[p] + b*O`` of ``B*O`` (``ShapeBucket.folded_oi``,
+still ascending) -- so one launch per bucket serves the whole batch, with
+the folded work list built once per batch size on the bucket.  A pair
+product of the list pieces (``execute_pairs``) is a batched ``matmul`` over
+the leading axis, and the power-of-two pads never touch it.
 """
 from __future__ import annotations
 
@@ -39,7 +50,7 @@ from ..tensor.blocksparse import BlockKey, BlockSparseTensor
 from ..tensor.qn import Index
 from . import faults
 from .graphs import capturing
-from .plan import ContractionPlan, ShapeBucket, bucket_dim
+from .plan import ContractionPlan, ShapeBucket, _prod, bucket_dim
 
 BlockMats = Dict[BlockKey, torch.Tensor]
 
@@ -49,25 +60,62 @@ def execute_pairs(plan: ContractionPlan, a_blocks: Dict, b_blocks: Dict) -> Dict
 
     The list algorithm's numeric half, shared by the engine's "list"
     backend and the fused environment core (``dist/envcore.py``), so the
-    order of accumulation cannot differ between them.
+    order of accumulation cannot differ between them.  Stacked blocks (one
+    leading problem axis) take one batched ``matmul`` per pair instead.
     """
-    dims = (list(plan.ax_a), list(plan.ax_b))
     out: Dict = {}
+    if not plan.pairs:
+        return out
+    n_a = len(plan.keep_a) + len(plan.ax_a)
+    if next(iter(a_blocks.values())).dim() > n_a:
+        product = _stacked_product(plan)
+    else:
+        dims = (list(plan.ax_a), list(plan.ax_b))
+
+        def product(a, b):
+            return torch.tensordot(a, b, dims=dims)
+
     for ka, kb, kc in plan.pairs:
-        piece = torch.tensordot(a_blocks[ka], b_blocks[kb], dims=dims)
+        piece = product(a_blocks[ka], b_blocks[kb])
         out[kc] = out[kc] + piece if kc in out else piece
     return out
 
 
+def _stacked_product(plan: ContractionPlan):
+    """The pair product on stacked blocks: ``tensordot`` over the plan's axes
+    for each problem of the leading axis, as one batched ``matmul``."""
+    perm_a = (0,) + tuple(1 + i for i in plan.keep_a + plan.ax_a)
+    perm_b = (0,) + tuple(1 + i for i in plan.ax_b + plan.keep_b)
+
+    def product(a, b):
+        keep_a = tuple(a.shape[1 + i] for i in plan.keep_a)
+        keep_b = tuple(b.shape[1 + i] for i in plan.keep_b)
+        m = a.permute(perm_a).reshape(a.shape[0], _prod(keep_a), -1)
+        n = b.permute(perm_b).reshape(b.shape[0], -1, _prod(keep_b))
+        return torch.matmul(m, n).reshape((a.shape[0],) + keep_a + keep_b)
+
+    return product
+
+
+def batch_shape(t: BlockSparseTensor) -> Tuple[int, ...]:
+    """The leading problem axes of ``t``'s blocks: ``()`` for one problem,
+    ``(B,)`` for a stacked tensor (``serve/stacked.py``)."""
+    for blk in t.blocks.values():
+        return tuple(blk.shape[: blk.dim() - t.ndim])
+    return ()
+
+
 def _matricize(t, first: Tuple[int, ...], second: Tuple[int, ...]) -> BlockMats:
+    """2-D form of every block, rows ``first`` and columns ``second``;
+    leading axes beyond the modes (a stacked tensor's problem axis) stay in
+    front, so a stacked block gives ``[B, r, c]``."""
     blocks = t.blocks if isinstance(t, BlockSparseTensor) else t
-    perm = first + second
     out: BlockMats = {}
     for key, blk in blocks.items():
-        r = 1
-        for i in first:
-            r *= blk.shape[i]
-        out[key] = blk.permute(perm).reshape(r, -1)
+        lead = blk.dim() - len(first) - len(second)
+        perm = tuple(range(lead)) + tuple(lead + i for i in first + second)
+        r = _prod(blk.shape[lead + i] for i in first)
+        out[key] = blk.permute(perm).reshape(tuple(blk.shape[:lead]) + (r, -1))
     return out
 
 
@@ -91,10 +139,14 @@ def bucket_operands(bucket: ShapeBucket, a_mats: BlockMats, b_mats: BlockMats):
     """The block GEMM's ``(lhs [P, m, k], rhs [P, k, n])`` of one bucket: its
     blocks stacked in pair order (``li``, ``ri``), a block that serves
     several pairs once per pair — one copy per operand, where stacking the
-    unique blocks and gathering them would be two."""
-    lhs = torch.stack([a_mats[bucket.a_keys[i]] for i in bucket.li])
-    rhs = torch.stack([b_mats[bucket.b_keys[i]] for i in bucket.ri])
-    return lhs, rhs
+    unique blocks and gathering them would be two.  Stacked ``[B, r, c]``
+    blocks fold into the pair axis b-major: ``lhs [B*P, m, k]``, ``rhs
+    [B*P, k, n]`` (one copy per operand all the same)."""
+    a_list = [a_mats[bucket.a_keys[i]] for i in bucket.li]
+    b_list = [b_mats[bucket.b_keys[i]] for i in bucket.ri]
+    if a_list[0].dim() == 2:
+        return torch.stack(a_list), torch.stack(b_list)
+    return (torch.stack(a_list, dim=1).flatten(0, 1), torch.stack(b_list, dim=1).flatten(0, 1))
 
 
 def execute_batched_blocks(
@@ -104,17 +156,26 @@ def execute_batched_blocks(
 
     Each bucket is one ``block_sparse_matmul`` launch with the bucket's
     cached work list; buckets that feed the same output block add up here.
+    Stacked ``[B, r, c]`` blocks run the same loop with the problem axis
+    folded into each bucket's pair axis (the bucket's folded work list and
+    output slots), still one launch per bucket, and return ``[B, ...]``
+    blocks.
     """
     layout = plan.batched
-    device = next(iter(a_mats.values())).device
+    first = next(iter(a_mats.values()))
+    batch = first.shape[0] if first.dim() == 3 else 1
+    lead = (batch,) if first.dim() == 3 else ()
     out_acc: Dict[BlockKey, torch.Tensor] = {}
-    for bucket, oi in zip(layout.buckets, layout.device_tables(device)):
+    for bucket, oi in zip(layout.buckets, layout.device_tables(first.device, batch)):
         lhs, rhs = bucket_operands(bucket, a_mats, b_mats)
-        out = block_sparse_matmul(lhs, rhs, oi, len(bucket.out_keys), work=bucket.work, use_kernel=use_kernel)
+        O = len(bucket.out_keys)
+        out = block_sparse_matmul(lhs, rhs, oi, batch * O, work=bucket.folded_work(batch), use_kernel=use_kernel)
+        out = out.view(lead + (O, bucket.m, bucket.n))
         for slot, kc in enumerate(bucket.out_keys):
+            piece = out[..., slot, :, :]
             prev = out_acc.get(kc)
-            out_acc[kc] = out[slot] if prev is None else prev + out[slot]
-    return {kc: mat.reshape(plan.out_block_shape(kc)) for kc, mat in out_acc.items()}
+            out_acc[kc] = piece if prev is None else prev + piece
+    return {kc: mat.reshape(lead + plan.out_block_shape(kc)) for kc, mat in out_acc.items()}
 
 
 def execute_batched(
@@ -161,12 +222,13 @@ def pad_block_sparse(t: BlockSparseTensor) -> BlockSparseTensor:
     Same charges, flows and block keys; only the degeneracies grow.  Both
     members of every contracted index pair pad identically, and the padded
     entries are zero, so any contraction of padded tensors equals the
-    padding of the unpadded contraction exactly.
+    padding of the unpadded contraction exactly.  The leading problem axis
+    of a stacked tensor is never padded.
     """
     out = BlockSparseTensor(tuple(pad_index(ix) for ix in t.indices), {}, t.charge)
     for k, blk in t.blocks.items():
         tgt = out.block_shape(k)
-        if tgt == tuple(blk.shape):
+        if tgt == tuple(blk.shape[blk.dim() - len(tgt):]):
             out.blocks[k] = blk
         else:
             widths = [w for ts, s in zip(reversed(tgt), reversed(blk.shape)) for w in (0, ts - s)]
@@ -175,9 +237,11 @@ def pad_block_sparse(t: BlockSparseTensor) -> BlockSparseTensor:
 
 
 def unpad_block_sparse(t: BlockSparseTensor, indices: Tuple[Index, ...]) -> BlockSparseTensor:
-    """Slice a padded tensor back to the given (original) index structure."""
+    """Slice a padded tensor back to the given (original) index structure;
+    a stacked tensor keeps its leading problem axis whole."""
     out = BlockSparseTensor(indices, {}, t.charge)
     for k, blk in t.blocks.items():
         tgt = out.block_shape(k)
-        out.blocks[k] = blk if tgt == tuple(blk.shape) else blk[tuple(slice(0, s) for s in tgt)]
+        same = tgt == tuple(blk.shape[blk.dim() - len(tgt):])
+        out.blocks[k] = blk if same else blk[(Ellipsis,) + tuple(slice(0, s) for s in tgt)]
     return out

@@ -95,29 +95,39 @@ def svd_core_body(plan: DecompositionPlan, absorb: str, methods: Tuple[str, ...]
     ``(U, s, Vh)`` with the padding's singular values masked to exact zero
     and the absorb scaling applied to U ("left") or Vh ("right"), and the
     concatenated singular values of all buckets (what the caller syncs).
+
+    Stacked blocks (a leading problem axis of B) give one SVD per bucket of
+    all B problems' sectors, ``[B*S, r, c]``; every output then carries the
+    problem axis in front (``U [B, S, r, k]``, ``s_cat [B, total]``).
     """
+    n_modes = len(plan.row_ix) + len(plan.col_ix)
 
     def body(blocks):
         first = blocks[0]
-        flat = torch.cat([b.reshape(-1) for b in blocks] + [first.new_zeros(1)])
+        lead = tuple(first.shape[: first.dim() - n_modes])
+        nb = lead[0] if lead else 1
+        flat = torch.cat([b.reshape(nb, -1) for b in blocks] + [first.new_zeros((nb, 1))], dim=1)
         out, s_parts = [], []
         for bi, bucket in enumerate(plan.buckets):
             gather, mask = bucket.device_tables(first.device)
-            mats = flat.index_select(0, gather).view(len(bucket.sectors), bucket.rmax, bucket.cmax)
+            S = len(bucket.sectors)
+            mats = flat.index_select(1, gather).view(nb * S, bucket.rmax, bucket.cmax)
             if methods[bi] == "rsvd":
                 U, s, Vh = _randomized_svd(mats, sketch, rsvd_power_iters, rsvd_seed + bi)
             else:
                 U, s, Vh = torch.linalg.svd(mats, full_matrices=False)
             # a smaller sector's padding gives ~eps values; zero them so the
             # truncation sees only the K = min(R, C) real ones
-            s = torch.where(mask[:, : s.shape[-1]], s, torch.zeros((), dtype=s.dtype, device=s.device))
+            real = mask[:, : s.shape[-1]].repeat(nb, 1)
+            s = torch.where(real, s, torch.zeros((), dtype=s.dtype, device=s.device))
             if absorb == "left":
                 U = U * s[:, None, :].to(U.dtype)
             elif absorb == "right":
                 Vh = Vh * s[:, :, None].to(Vh.dtype)
+            U, s, Vh = (t.view(lead + (S,) + tuple(t.shape[1:])) for t in (U, s, Vh))
             out.append((U, s, Vh))
-            s_parts.append(s.reshape(-1))
-        return tuple(out), torch.cat(s_parts)
+            s_parts.append(s.reshape(lead + (-1,)))
+        return tuple(out), torch.cat(s_parts, dim=-1)
 
     return body
 
@@ -306,16 +316,23 @@ class DecompositionEngine:
         finally:
             self.svd_seconds += time.perf_counter() - t0
 
+    def record_call(self, plan: DecompositionPlan, methods, sketch: int, on_card: bool, problems: int = 1) -> None:
+        """Count one executed split of ``plan`` (of ``problems`` stacked
+        problems) in the stats: its host syncs are those of one split
+        whatever the batch, one read of every singular value and
+        ``SVD_SYNCS`` per bucket."""
+        self.svd_calls += 1
+        self.svd_flops += problems * self._call_flops(plan, methods, sketch)
+        self.sectors_processed += problems * plan.num_sectors
+        self.buckets_processed += plan.num_buckets
+        self.rsvd_buckets += sum(1 for m in methods if m == "rsvd")
+        if on_card:
+            self.host_syncs += 1 + SVD_SYNCS * plan.num_buckets
+
     def _execute(self, plan, theta, max_bond, cutoff, absorb, methods, sketch):
         core = svd_core_body(plan, absorb, methods, sketch, self.rsvd_power_iters, self.rsvd_seed)
         bucket_out, s_cat = core([theta.blocks[k] for k in plan.block_order])
-        self.svd_calls += 1
-        self.svd_flops += self._call_flops(plan, methods, sketch)
-        self.sectors_processed += plan.num_sectors
-        self.buckets_processed += plan.num_buckets
-        self.rsvd_buckets += sum(1 for m in methods if m == "rsvd")
-        if s_cat.is_cuda:
-            self.host_syncs += 1 + SVD_SYNCS * plan.num_buckets
+        self.record_call(plan, methods, sketch, s_cat.is_cuda)
 
         # the split's one read on the host: every bucket's singular values
         s_host = s_cat.cpu().numpy()

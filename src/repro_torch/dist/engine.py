@@ -43,7 +43,7 @@ import torch
 from ..kernels.block_gemm.ops import block_sparse_matmul
 from ..tensor.block_csr import pack_blocks
 from ..tensor.blocksparse import BlockKey, BlockSparseTensor, contract
-from .batch import execute_batched, execute_pairs, matricize_lhs, matricize_rhs
+from .batch import batch_shape, execute_batched, execute_pairs, matricize_lhs, matricize_rhs
 from .decomp import DecompositionEngine
 from .envcore import EnvironmentEngine
 from .faults import RECOVERABLE
@@ -142,8 +142,10 @@ class ContractionEngine:
                 out = getattr(self, f"_execute_{backend}")(plan, a, b)
         except RECOVERABLE:
             block = next(iter(a.blocks.values()), None)
-            if block is not None and capturing(block):
-                raise  # a failed capture cannot be patched up: the capture fails
+            if block is not None and (capturing(block) or batch_shape(a)):
+                # a failed capture cannot be patched up: the capture fails;
+                # a stacked batch has no lower rung: its caller recovers
+                raise
             out = self._degraded_call(backend, plan, a, b, axes)
         self.backend_seconds[backend] += time.perf_counter() - t0
         return out
@@ -290,7 +292,10 @@ class ContractionEngine:
         ``choose_backend`` gives its plan, in the graph as eagerly; the
         graph matricizes the fixed operand of a batched step only.  Each
         graph's entry holds the four plans it reads, so their device tables
-        live as long as the graph, whatever the plan cache evicts.
+        live as long as the graph, whatever the plan cache evicts.  Stacked
+        operands (``serve/stacked.py``, batched backend) run the same
+        pipeline with the problem axis folded into each block GEMM launch;
+        their batch size joins the graph key.
         """
         if not jit:
             mats = self._fixed_operand_mats(A, Wj, Wj1, B) if self.backend in ("batched", "auto") else None
@@ -317,13 +322,15 @@ class ContractionEngine:
                 y = self.two_site_matvec(A_, Wj_, Wj1_, B_, x_, mats=mats, plans=plans)
                 return [y.blocks[k] for k in sorted(y.blocks)]
 
+            lead = batch_shape(x)
+
             def prepare():
-                plans = self._prepare_chain(x, (A, Wj, Wj1, B), x.device)
+                plans = self._prepare_chain(x, (A, Wj, Wj1, B), x.device, lead)
                 last = plans[-1]
                 keys = tuple(sorted(last.out_keys))
-                return [last.out_block_shape(k) for k in keys], (last.out_indices, last.out_charge, keys), plans
+                return [lead + last.out_block_shape(k) for k in keys], (last.out_indices, last.out_charge, keys), plans
 
-            key = ops_key + ((x.indices, x.charge, x_keys),)
+            key = ops_key + ((x.indices, x.charge, x_keys), lead)
             outs, (indices, charge, keys) = self.graphs.run(
                 key, body, prepare, [x.blocks[k] for k in x_keys], fixed, fixed_token=token
             )
@@ -331,12 +338,14 @@ class ContractionEngine:
 
         return call
 
-    def _prepare_chain(self, x, ops, device) -> Tuple[ContractionPlan, ...]:
+    def _prepare_chain(self, x, ops, device, lead=()) -> Tuple[ContractionPlan, ...]:
         """The four step plans of ``two_site_matvec`` on x's structure, each
         with what the backend it runs on reads from the host ready: the
         layout's index tables and work lists on ``device`` (before a graph
-        capture, which cannot copy from the host), or the dense layout's
+        capture, which cannot copy from the host), those of ``lead`` =
+        ``(B,)`` problems folded for a stacked x, or the dense layout's
         output slices."""
+        batch = lead[0] if lead else 1
         A, Wj, Wj1, B = ops
         t, plans = x, []
         for i, axes in enumerate(MATVEC_AXES):
@@ -344,9 +353,9 @@ class ContractionEngine:
             plan = self.cache.get(a, b, axes)
             backend = self.backend_for(plan)
             if plan.pairs and backend == "batched":
-                plan.batched.device_tables(device)
+                plan.batched.device_tables(device, batch)
                 for bucket in plan.batched.buckets:
-                    bucket.work.tables(device)
+                    bucket.folded_work(batch).tables(device)
             elif plan.pairs and backend == "csr":
                 plan.csr.device_tables(device)
                 plan.csr.work.tables(device)

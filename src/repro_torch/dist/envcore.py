@@ -21,6 +21,11 @@ rebuild at startup.  Here:
 Equality: the core runs the three-contraction pipeline's own pair tables in
 their own order, so it equals ``extend_left`` / ``extend_right`` block for
 block to rounding (<=1e-12, ``tests/test_torch_envcore.py``).
+
+Stacked operands (``serve/stacked.py``: one leading problem axis on every
+block) take the same path: the pair products become batched ``matmul``s
+(``execute_pairs``), the pads and the transpose leave the problem axis
+alone, and the batch size joins the graph key.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import torch
 from ..tensor.blocksparse import BlockSparseTensor
 from ..tensor.qn import Index
 from . import faults
-from .batch import execute_pairs, pad_block_sparse, unpad_block_sparse
+from .batch import batch_shape, execute_pairs, pad_block_sparse, unpad_block_sparse
 from .faults import FaultInjected
 from .graphs import GraphCache
 from .plan import EnvironmentPlan, EnvPlanCache
@@ -53,7 +58,8 @@ def env_out_indices(site: BlockSparseTensor, mpo: BlockSparseTensor, side: str) 
 def env_core_body(plan: EnvironmentPlan):
     """All three contractions, the conjugation and the transpose, one
     function of the env, site and MPO blocks (in the plan's sorted key
-    order) returning the env blocks in ``plan.out_keys`` order."""
+    order) returning the env blocks in ``plan.out_keys`` order.  Stacked
+    blocks keep their leading problem axis in front."""
     p1, p2, p3 = plan.steps
     left = plan.side == "left"
 
@@ -66,7 +72,9 @@ def env_core_body(plan: EnvironmentPlan):
             x = execute_pairs(p3, bra, execute_pairs(p2, execute_pairs(p1, e, t), w))
         else:
             x = execute_pairs(p3, execute_pairs(p2, execute_pairs(p1, t, e), w), bra)
-        return tuple(x[k].permute(plan.perm) for k in plan.pre_out_keys)
+        lead = tuple(range(env_blocks[0].dim() - len(plan.perm)))
+        perm = lead + tuple(len(lead) + p for p in plan.perm)
+        return tuple(x[k].permute(perm) for k in plan.pre_out_keys)
 
     return body
 
@@ -124,10 +132,13 @@ class EnvironmentEngine:
             def body(_fixed, live, _keep):
                 return core(live[:n_env], live[n_env:n_env + n_site], live[n_env + n_site:])
 
-            def prepare():  # the pair tables are host data: nothing to upload or keep
-                return [tuple(ix.sector_dim(s) for ix, s in zip(plan.out_indices, k)) for k in plan.out_keys], None, None
+            lead = batch_shape(env_p)
 
-            blocks, _ = self.graphs.run(("env", plan.signature), body, prepare, inputs)
+            def prepare():  # the pair tables are host data: nothing to upload or keep
+                return [lead + tuple(ix.sector_dim(s) for ix, s in zip(plan.out_indices, k))
+                        for k in plan.out_keys], None, None
+
+            blocks, _ = self.graphs.run(("env", plan.signature, lead), body, prepare, inputs)
         else:
             blocks = core(inputs[:n_env], inputs[n_env:n_env + n_site], inputs[n_env + n_site:])
         out = BlockSparseTensor(plan.out_indices, dict(zip(plan.out_keys, blocks)), plan.out_charge)

@@ -76,9 +76,7 @@ RECOVERABLE = (FaultInjected, NumericalHealthError)
 
 #: Every named injection point, with where its hook lives.  Arming an
 #: unknown name raises at once (a typo would otherwise never fire and the
-#: test would pass vacuously).  The reference's three ``serve.*`` points
-#: come with the serving layer (ROADMAP Queue 1 #10); until then arming one
-#: raises as an unknown name.
+#: test would pass vacuously).
 FAULT_POINTS: Dict[str, str] = {
     # NaN-poison one bucket output of a batched-GEMM contraction
     # (dist/batch.py execute_batched; skipped inside a CUDA graph capture).
@@ -96,6 +94,16 @@ FAULT_POINTS: Dict[str, str] = {
     # Kill the sweep after a site update: a mid-sweep crash for the
     # checkpoint/resume path (core/sweep.py DMRGEngine.sweep).
     "sweep.kill": "core/sweep.py:DMRGEngine.sweep",
+    # Crash the serving worker thread between slots (outside the per-slot
+    # recovery), exercising the watchdog restart (serve/service.py).
+    "serve.worker_crash": "serve/service.py:_worker_loop",
+    # Artificial latency added to one slot solve (``value`` = seconds).
+    "serve.slot_latency": "serve/service.py:_run_slot",
+    # NaN-poison the MPO of one request in a slot before solving
+    # (``problem`` = the request id, so the poison follows the request
+    # through bisection retries), exercising per-problem health masks and
+    # slot bisection (serve/service.py).
+    "serve.poison_request": "serve/service.py:_run_slot",
 }
 
 

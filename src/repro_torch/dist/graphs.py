@@ -24,8 +24,12 @@ with one host call per replay.
   one flat buffer per role with one ``torch.cat`` (``live``: every call;
   ``fixed``: only when ``fixed_token`` names other contents than the buffer
   holds, i.e. once per Davidson solve for the matvec's fixed operands), and
-  ``body`` sees views into it.  The buffers are shared by all graphs of the
-  cache and only grow; a growth drops every graph, which then recaptures.
+  ``body`` sees views into it.  A structure's entry takes the cache's
+  buffers at its first call and keeps them: later structures share them
+  while they are large enough, and a structure that needs more allocates
+  larger ones (twice the size at least) for itself and the structures after
+  it.  A graph keeps reading the buffers it was captured on, so a growth
+  drops no graph and a warmed pipeline never captures again.
 - The outputs are concatenated into a static output buffer inside the
   graph, and every call returns a copy of it (one copy), since callers keep
   results across calls (Davidson keeps every ``A v``).
@@ -89,16 +93,28 @@ def _views(buf: torch.Tensor, layout) -> List[torch.Tensor]:
 
 class _Entry:
     """One structure: its input and output layouts, ``meta``, what its
-    body reads besides its inputs (``keep``), and on the card its graph and
-    the launches its capture recorded."""
+    body reads besides its inputs (``keep``), the static buffers it reads
+    and writes (``bufs``, by role), and on the card its graph and the
+    launches its capture recorded."""
 
-    __slots__ = ("graph", "tally", "captured", "meta", "keep", "fixed", "live", "out")
+    __slots__ = ("graph", "tally", "captured", "meta", "keep", "fixed", "live", "out", "bufs")
 
     def __init__(self, fixed, live, out, meta, keep):
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tally: Dict = {}
         self.captured = False
         self.fixed, self.live, self.out, self.meta, self.keep = fixed, live, out, meta, keep
+        self.bufs: Dict[str, "_Buffer"] = {}
+
+
+class _Buffer:
+    """One flat static buffer, and for a ``fixed`` one the token of the
+    contents staged in it."""
+
+    __slots__ = ("tensor", "token")
+
+    def __init__(self, tensor: torch.Tensor):
+        self.tensor, self.token = tensor, None
 
 
 class GraphCache:
@@ -110,8 +126,8 @@ class GraphCache:
 
     ``stats()``: ``graph_captures`` (structures captured, the port's ``jit_retraces``),
     ``graph_replays``, ``graphs`` (structures kept), ``evictions``,
-    ``buffer_growths`` (static-buffer growths, each dropping every graph),
-    ``buffer_bytes`` (the static buffers), ``pool_bytes`` (growth of the
+    ``buffer_growths`` (static buffers allocated larger than the last),
+    ``buffer_bytes`` (the static buffers live), ``pool_bytes`` (growth of the
     card's reserved memory over the captures: the shared pool's segments),
     ``capture_seconds`` (host time of the captures, instantiation included)
     and ``instantiate_seconds`` (of which in ``capture_end``).
@@ -120,8 +136,9 @@ class GraphCache:
     def __init__(self):
         self.max_graphs = MAX_GRAPHS
         self._entries: "OrderedDict[Hashable, _Entry]" = OrderedDict()
-        self._buffers: Dict[Tuple[str, torch.device, torch.dtype], torch.Tensor] = {}
-        self._fixed_token = None
+        # the newest (largest) buffer per (role, device, dtype); older ones
+        # live on in the entries captured on them
+        self._buffers: Dict[Tuple[str, torch.device, torch.dtype], _Buffer] = {}
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
         self._anchor: Optional[torch.cuda.CUDAGraph] = None
@@ -130,27 +147,27 @@ class GraphCache:
         self.capture_seconds = self.instantiate_seconds = 0.0
 
     # ---------------------------------------------------------------- buffers
-    def _buffer(self, role: str, numel: int, like: torch.Tensor) -> torch.Tensor:
+    def _buffer(self, role: str, numel: int, like: torch.Tensor) -> _Buffer:
+        """The newest buffer of ``role``, or a larger one when it holds
+        fewer than ``numel`` elements (the old one stays with its entries)."""
         key = (role, like.device, like.dtype)
         buf = self._buffers.get(key)
-        if buf is None or buf.numel() < numel:
+        if buf is None or buf.tensor.numel() < numel:
             if buf is not None:
-                # graphs read the old buffer's address: all of them go
                 self.buffer_growths += 1
-                self._entries.clear()
-            if role == "fixed":
-                self._fixed_token = None
-            size = max(numel, 2 * buf.numel() if buf is not None else 0, 1)
-            buf = self._buffers[key] = torch.empty(size, dtype=like.dtype, device=like.device)
+            size = max(numel, 2 * buf.tensor.numel() if buf is not None else 0, 1)
+            buf = self._buffers[key] = _Buffer(torch.empty(size, dtype=like.dtype, device=like.device))
         return buf
 
-    def _stage(self, role: str, tensors: Sequence[torch.Tensor], numel: int) -> None:
-        buf = self._buffer(role, numel, tensors[0])
+    @staticmethod
+    def _stage(buf: _Buffer, tensors: Sequence[torch.Tensor], numel: int) -> None:
         if numel:
-            torch.cat([t.reshape(-1) for t in tensors], out=buf[:numel])
+            torch.cat([t.reshape(-1) for t in tensors], out=buf.tensor[:numel])
 
-    def _views(self, role: str, layout, like: torch.Tensor) -> List[torch.Tensor]:
-        return _views(self._buffers[(role, like.device, like.dtype)], layout) if layout[2] else []
+    @staticmethod
+    def _views(entry: _Entry, role: str) -> List[torch.Tensor]:
+        layout = getattr(entry, role)
+        return _views(entry.bufs[role].tensor, layout) if layout[2] else []
 
     # -------------------------------------------------------------------- run
     def run(
@@ -176,23 +193,25 @@ class GraphCache:
             self._insert(key, entry)
         else:
             self._entries.move_to_end(key)
-        if fixed and (fixed_token is None or fixed_token is not self._fixed_token):
-            self._stage("fixed", fixed, entry.fixed[2])
-            self._fixed_token = fixed_token
-        self._stage("live", live, entry.live[2])
-        out = self._buffer("out", entry.out[2], like)
+        if not entry.bufs:
+            entry.bufs = {role: self._buffer(role, getattr(entry, role)[2], like)
+                          for role in ("fixed", "live", "out")}
+        fb = entry.bufs["fixed"]
+        if fixed and (fixed_token is None or fixed_token is not fb.token):
+            self._stage(fb, fixed, entry.fixed[2])
+            fb.token = fixed_token
+        self._stage(entry.bufs["live"], live, entry.live[2])
+        out = entry.bufs["out"].tensor
         if not entry.captured:
             if like.device.type == "cuda":
                 self._capture(entry, body, like, out)
             entry.captured = True
-            self._insert(key, entry)  # a buffer growth may have dropped it
             self.captures += 1
         if entry.graph is not None:
             entry.graph.replay()
             kernels.count_replay(entry.tally)
         else:
-            views = self._views("fixed", entry.fixed, like), self._views("live", entry.live, like)
-            self._write_out(entry, body(*views, entry.keep), out)
+            self._write_out(entry, body(self._views(entry, "fixed"), self._views(entry, "live"), entry.keep), out)
         self.replays += 1
         n = entry.out[2]
         flat = out[:n].clone() if n else like.new_empty(0)
@@ -212,7 +231,7 @@ class GraphCache:
         dev = like.device
         if self._stream is None:
             self._start_pool(dev)
-        fixed_v, live_v = self._views("fixed", entry.fixed, like), self._views("live", entry.live, like)
+        fixed_v, live_v = self._views(entry, "fixed"), self._views(entry, "live")
         s, cur = self._stream, torch.cuda.current_stream(dev)
         s.wait_stream(cur)
         reserved = torch.cuda.memory_reserved(dev)
@@ -273,6 +292,12 @@ class GraphCache:
             self.evictions += 1
 
     # --------------------------------------------------------------- reports
+    def _buffer_bytes(self) -> int:
+        live = {id(b): b.tensor for b in self._buffers.values()}
+        for e in self._entries.values():
+            live.update((id(b), b.tensor) for b in e.bufs.values())
+        return sum(t.numel() * t.element_size() for t in live.values())
+
     def __len__(self) -> int:
         return len(self._entries)
 
@@ -283,7 +308,7 @@ class GraphCache:
             "graphs": len(self._entries),
             "evictions": self.evictions,
             "buffer_growths": self.buffer_growths,
-            "buffer_bytes": sum(b.numel() * b.element_size() for b in self._buffers.values()),
+            "buffer_bytes": self._buffer_bytes(),
             "pool_bytes": self.pool_bytes,
             "capture_seconds": self.capture_seconds,
             "instantiate_seconds": self.instantiate_seconds,

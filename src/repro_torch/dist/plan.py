@@ -26,6 +26,7 @@ before the capture.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -138,6 +139,7 @@ class ShapeBucket:
     li_identity: bool = False             # li == arange(P): gather is a no-op
     ri_identity: bool = False
     _work: Optional[WorkList] = None
+    _folded: Dict[int, WorkList] = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def work(self) -> WorkList:
@@ -148,6 +150,25 @@ class ShapeBucket:
             self._work = shared_work_list(segments(self.oi, len(self.out_keys)), self.m, self.k, self.n)
         return self._work
 
+    def folded_oi(self, batch: int) -> np.ndarray:
+        """Output slots of the bucket with ``batch`` problems folded into its
+        pair axis: pair ``b*P + p`` writes slot ``oi[p] + b*O``, so the table
+        stays ascending (b-major) over ``batch * O`` slots."""
+        O = len(self.out_keys)
+        return (self.oi[None, :] + O * np.arange(batch, dtype=np.int32)[:, None]).reshape(-1).astype(np.int32)
+
+    def folded_work(self, batch: int) -> WorkList:
+        """The work list of ``folded_oi(batch)``, shape ``(batch*P,
+        batch*O, m, k, n)``; built once per batch size and kept on the
+        bucket (``batch == 1`` is ``work``)."""
+        if batch == 1:
+            return self.work
+        wl = self._folded.get(batch)
+        if wl is None:
+            seg = segments(self.folded_oi(batch), batch * len(self.out_keys))
+            wl = self._folded[batch] = shared_work_list(seg, self.m, self.k, self.n)
+        return wl
+
 
 @dataclasses.dataclass
 class BatchedLayout:
@@ -157,24 +178,26 @@ class BatchedLayout:
     num_unique: int                       # sum over buckets of |a_keys|+|b_keys|
     num_out_slots: int                    # sum over buckets of |out_keys|
     dev_idx: Dict = dataclasses.field(default_factory=dict)
-    _host: Optional[np.ndarray] = None    # every bucket's oi end to end, as uploaded
+    _host: Dict = dataclasses.field(default_factory=dict)  # per batch: every bucket's oi end to end, as uploaded
 
     @property
     def num_buckets(self) -> int:
         return len(self.buckets)
 
-    def device_tables(self, device: torch.device):
+    def device_tables(self, device: torch.device, batch: int = 1):
         """Per bucket ``oi`` as an int32 tensor on ``device`` (the output
         slots the block GEMM's plain version scatters to; the kernel reads
         the bucket's work list), uploaded once per device in one copy
         without a host sync (the counterpart of the reference's per-mesh
-        ``memo_dev_idx``)."""
-        tables = self.dev_idx.get(device)
+        ``memo_dev_idx``).  With ``batch`` problems folded into the pair
+        axis, each bucket's ``folded_oi(batch)``."""
+        tables = self.dev_idx.get((device, batch))
         if tables is None:
-            if self._host is None:
-                self._host = np.concatenate([b.oi for b in self.buckets])
-            flat = torch.from_numpy(self._host).to(device, non_blocking=True)
-            tables = self.dev_idx[device] = tuple(flat.split([len(b.oi) for b in self.buckets]))
+            host = [b.oi if batch == 1 else b.folded_oi(batch) for b in self.buckets]
+            # the concatenation is kept until the non-blocking copy is done
+            self._host[batch] = flat_host = np.concatenate(host)
+            flat = torch.from_numpy(flat_host).to(device, non_blocking=True)
+            tables = self.dev_idx[(device, batch)] = tuple(flat.split([len(h) for h in host]))
         return tables
 
 
@@ -664,33 +687,48 @@ class _SignatureLRU:
     ``builds`` the plans built (equal to ``misses``: there is no persistent
     plan store yet, ROADMAP Queue 1 #11), ``size`` the live entries.
     Subclasses provide ``get``, which calls ``_get(signature, build)``.
+
+    Thread-safe, as the reference's: the serving layer (``serve/``) looks
+    plans up from the worker thread while other threads submit and read
+    stats, so every lookup and counter update holds a per-cache lock.  A
+    build runs inside the lock, so two racing lookups of one signature share
+    one plan (and the device tables it memoizes).  An ``EnvPlanCache`` build
+    takes its contraction cache's lock, never the reverse.
     """
 
     def __init__(self, maxsize: int = 4096):
         self.maxsize = maxsize
         self._plans: OrderedDict = OrderedDict()
+        self._lock = threading.RLock()
         self.hits = self.misses = self.evictions = self.builds = 0
 
     def _get(self, sig, build):
-        plan = self._plans.get(sig)
-        if plan is not None:
-            self.hits += 1
-            self._plans.move_to_end(sig)
+        with self._lock:
+            plan = self._plans.get(sig)
+            if plan is not None:
+                self.hits += 1
+                self._plans.move_to_end(sig)
+                return plan
+            self.misses += 1
+            self.builds += 1
+            plan = self._plans[sig] = build()
+            while len(self._plans) > self.maxsize:
+                self._plans.popitem(last=False)
+                self.evictions += 1
             return plan
-        self.misses += 1
-        self.builds += 1
-        plan = self._plans[sig] = build()
-        while len(self._plans) > self.maxsize:
-            self._plans.popitem(last=False)
-            self.evictions += 1
-        return plan
 
     def __len__(self) -> int:
         return len(self._plans)
 
+    def clear(self) -> None:
+        with self._lock:
+            self._plans.clear()
+            self.hits = self.misses = self.evictions = self.builds = 0
+
     def stats(self) -> Dict[str, int]:
-        return {"hits": self.hits, "misses": self.misses, "evictions": self.evictions,
-                "builds": self.builds, "size": len(self._plans)}
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses, "evictions": self.evictions,
+                    "builds": self.builds, "size": len(self._plans)}
 
 
 class PlanCache(_SignatureLRU):

@@ -7,6 +7,7 @@ that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -815,3 +816,216 @@ def test_clean_auto_run_has_every_ladder_counter_zero(card):
     assert all(s.pair_retries == 0 for s in stats)
     assert sum(s.graphs["graph_replays"] for s in stats) > 0
     assert abs(stats[-1].energy - ground_energy(sp, terms, 6, charge=(0,))) <= 1e-8
+
+
+# ------------------------------------------------------------------ serving
+SERVE_J = (0.9, 1.0, 1.1, 1.2)
+
+
+def _serve_specs(n=10, m=16):
+    from repro_torch.serve import ProblemSpec
+
+    return [ProblemSpec.make("heisenberg", n, J=j, h=0.3, max_bond=m, sweeps_per_bond=1, davidson_iters=4)
+            for j in SERVE_J]
+
+
+def _stacked_middle_operator(card):
+    """A stacked run of the four served problems on the card, and the padded
+    stacked (A, W_j, W_{j+1}, B, theta) of its middle pair."""
+    from repro_torch.core.env import left_edge, right_edge
+    from repro_torch.serve import StackedOps, build_problem, run_dmrg_multi
+    from repro_torch.serve.stacked import broadcast_tensor, pad_stacked
+
+    specs = _serve_specs()
+    built = [build_problem(s) for s in specs]
+    n = specs[0].n_sites
+    ops = StackedOps()
+    res = run_dmrg_multi(built[0][0], n, [m for _, m in built], bond_schedule=specs[0].bond_schedule,
+                         sweeps_per_bond=1, davidson_iters=4, ops=ops, device=card)
+    eng = res.engine
+    T, W, j = eng.T, eng.W, n // 2 - 1
+    A = broadcast_tensor(left_edge(T[0], W[0]), len(specs))
+    for i in range(j):
+        A = ops.env_update("left", A, T[i], W[i])
+    Bx = broadcast_tensor(right_edge(T[n - 1], W[n - 1]), len(specs))
+    for i in range(n - 2, j, -1):
+        Bx = ops.env_update("right", Bx, T[i + 1], W[i + 1])
+    theta = ops.contract(T[j], T[j + 1], ((2,), (0,)))
+    return ops, built, [pad_stacked(t) for t in (A, W[j], W[j + 1], Bx, theta)]
+
+
+def test_folded_launch_matches_plain_and_per_problem_launches(card):
+    """Each bucket of a stacked middle-bond matvec is ONE block GEMM launch
+    over the B*P folded pairs: it equals its plain version (1e-12 relative)
+    and the B per-problem launches (1e-13 relative)."""
+    from repro_torch.dist.batch import bucket_operands, matricize_lhs, matricize_rhs
+    from repro_torch.dist.engine import MATVEC_AXES
+    from repro_torch.kernels.block_gemm.ops import block_sparse_matmul
+    from repro_torch.kernels.block_gemm.ref import block_sparse_matmul_ref
+    from repro_torch.serve.stacked import unstack_tensor
+
+    ops, _, (A, Wj, Wj1, Bx, x) = _stacked_middle_operator(card)
+    nb, t, n_buckets = len(SERVE_J), x, 0
+    for i, axes in enumerate(MATVEC_AXES):
+        a, b = (A, t) if i == 0 else (t, (Wj, Wj1, Bx)[i - 1])
+        plan = ops.engine.cache.get(a, b, axes)
+        am, bm = matricize_lhs(a, plan.keep_a, plan.ax_a), matricize_rhs(b, plan.keep_b, plan.ax_b)
+        singles = plan.batched.device_tables(card)
+        for bi, (bucket, oi) in enumerate(zip(plan.batched.buckets, plan.batched.device_tables(card, nb))):
+            O = len(bucket.out_keys)
+            lhs, rhs = bucket_operands(bucket, am, bm)
+            before = kernels.LAUNCHES["block_gemm"]
+            got = block_sparse_matmul(lhs, rhs, oi, nb * O, work=bucket.folded_work(nb))
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["block_gemm"] == before + 1
+            want = block_sparse_matmul_ref(lhs, rhs, oi, nb * O)
+            scale = max(want.abs().max().item(), 1e-300)
+            assert (got - want).abs().max().item() <= 1e-12 * scale
+            one_oi = singles[bi]
+            for p in range(nb):
+                ap = matricize_lhs(unstack_tensor(a, p), plan.keep_a, plan.ax_a)
+                bp = matricize_rhs(unstack_tensor(b, p), plan.keep_b, plan.ax_b)
+                l1, r1 = bucket_operands(bucket, ap, bp)
+                one = block_sparse_matmul(l1, r1, one_oi, O, work=bucket.work)
+                assert (got.view(nb, O, bucket.m, bucket.n)[p] - one).abs().max().item() <= 1e-13 * scale
+            n_buckets += 1
+        t = ops.contract(a, b, axes)
+    assert n_buckets > 4
+
+
+def test_served_slot_captures_nothing_after_warmup(card):
+    """A warmed service serves a slot of its warmup problems with zero
+    captures, launching the block GEMM, with energies 1e-10 from the single
+    runs and a zero recovery ledger."""
+    from repro_torch.core import run_dmrg
+    from repro_torch.serve import DMRGService
+    from repro_torch.tensor.blocksparse import BlockSparseTensor
+
+    specs = _serve_specs()
+    svc = DMRGService(max_batch=4, batch_wait_s=30.0, device=card)
+    try:
+        svc.warmup(specs, sizes=(4,))
+        assert svc.ops.retraces > 0
+        before = kernels.LAUNCHES["block_gemm"]
+        rids = [svc.submit(s) for s in specs]
+        recs = [svc.result(r, timeout=600) for r in rids]
+        st = svc.stats()
+        assert kernels.LAUNCHES["block_gemm"] > before
+        assert st["retraces"] == 0 and all(r["batch_size"] == 4 for r in recs)
+        assert not any((st["retries"], st["bisections"], st["worker_restarts"], st["unrecovered_errors"]))
+        assert not any(st["ladders"]["svd_degradations"].values()) and st["ladders"]["svd_retries"] == 0
+        for spec, rec in zip(specs, recs):
+            from repro_torch.serve import build_problem
+
+            space, mpo = build_problem(spec)
+            mpo = [BlockSparseTensor(w.indices, {k: b.to(card) for k, b in w.blocks.items()}, w.charge) for w in mpo]
+            ref = run_dmrg(space, None, spec.n_sites, bond_schedule=spec.bond_schedule, sweeps_per_bond=1,
+                           davidson_iters=4, mpo=mpo, algo="batched", jit_matvec=True, device=card)
+            assert abs(rec["energy"] - ref.energy) < 1e-10
+    finally:
+        svc.shutdown()
+
+
+def test_submit_during_a_capture(card):
+    """Requests submitted from another thread while the worker captures
+    graphs build their MPOs on the CPU and disturb no capture: every
+    request completes, equal to a slot solved with nothing running beside
+    it."""
+    from repro_torch.serve import DMRGService
+
+    specs = _serve_specs()
+    quiet = DMRGService(max_batch=4, batch_wait_s=30.0, device=card)
+    try:
+        want = [quiet.result(r, timeout=600)["energy"] for r in [quiet.submit(s) for s in specs]]
+    finally:
+        quiet.shutdown()
+
+    svc = DMRGService(max_batch=4, batch_wait_s=0.0, device=card)
+    state = {"capturing": 0, "overlapped": 0}
+    capture = svc.ops.engine.graphs._capture
+
+    def counted(*args):
+        state["capturing"] += 1
+        try:
+            return capture(*args)
+        finally:
+            state["capturing"] -= 1
+
+    svc.ops.engine.graphs._capture = counted
+    try:
+        rids = [(svc.submit(specs[0]), 0)]
+
+        def submitter():
+            for i in [1, 2, 3] * 3:
+                busy = state["capturing"] > 0
+                rids.append((svc.submit(specs[i]), i))
+                state["overlapped"] += busy
+
+        th = threading.Thread(target=submitter)
+        th.start()
+        th.join(timeout=600)
+        assert not th.is_alive()
+        recs = [(svc.result(r, timeout=600), i) for r, i in rids]
+        assert state["overlapped"] > 0
+        assert all(r["status"] == "done" for r, _ in recs) and svc.stats()["failed"] == 0
+        assert all(abs(r["energy"] - want[i]) < 1e-10 for r, i in recs)
+    finally:
+        svc.shutdown()
+
+
+@pytest.mark.parametrize("failure", ["build", "launch"])
+def test_block_gemm_failure_fails_the_served_requests(card, monkeypatch, failure):
+    """A block GEMM that does not build or launch is neither retried nor
+    bisected by the service: the slot's requests fail carrying the error,
+    and the stats count it."""
+    from repro_torch.kernels.block_gemm import ops
+    from repro_torch.serve import DMRGService
+
+    class Failing:
+        @staticmethod
+        def block_gemm_launch(*args):
+            return 1
+
+    def library():
+        if failure == "build":
+            raise RuntimeError("nvcc failed")
+        return Failing
+
+    monkeypatch.setattr(ops, "_library", library)
+    svc = DMRGService(max_batch=2, batch_wait_s=30.0, device=card)
+    try:
+        rids = [svc.submit(s) for s in _serve_specs()[:2]]
+        for rid in rids:
+            with pytest.raises(RuntimeError, match="nvcc failed" if failure == "build" else "launch failed"):
+                svc.result(rid, timeout=600)
+        st = svc.stats()
+        assert (st["failed"], st["retries"], st["bisections"], st["unrecovered_errors"]) == (2, 0, 0, 1)
+    finally:
+        svc.shutdown()
+
+
+def test_stacked_split_syncs_as_a_single_split(card):
+    """A stacked split of B problems syncs the host as one split does,
+    2 x buckets + 1 times (one SVD per bucket over every problem's sectors,
+    one read of all the singular values), as stats()["host_syncs"]
+    counts; the per-problem masks cross without a sync."""
+    import warnings
+
+    from repro_torch.serve import svd_split_multi
+
+    ops, _, (*_, theta) = _stacked_middle_operator(card)
+    svd_split_multi(theta, 2, 16, ops=ops)  # builds the plan and uploads its tables
+    torch.cuda.synchronize()
+    before = ops.engine.decomp.stats()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            svd_split_multi(theta, 2, 16, ops=ops)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = ops.engine.decomp.stats()
+    buckets = after["buckets"] - before["buckets"]
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert buckets >= 1
+    assert len(syncs) == 2 * buckets + 1 == after["host_syncs"] - before["host_syncs"]

@@ -78,14 +78,14 @@ def _two_sweeps(eng, m=8):
 # ---------------------------------------------------------------- registry
 class TestRegistry:
     def test_unknown_point_raises(self):
-        """A typo, and the reference's serve.* points (they come with the
-        serving layer), are unknown names."""
+        """A typo is an unknown name; the port knows every point of the
+        reference, the serving layer's three included."""
         reg = FaultRegistry()
-        for name in ("decomp.typo_fail", "serve.worker_crash", "serve.slot_latency", "serve.poison_request"):
-            assert name in jfaults.FAULT_POINTS or name == "decomp.typo_fail"
-            with pytest.raises(KeyError, match="unknown fault point"):
-                reg.arm(name)
-        assert set(faults.FAULT_POINTS) == {p for p in jfaults.FAULT_POINTS if not p.startswith("serve.")}
+        with pytest.raises(KeyError, match="unknown fault point"):
+            reg.arm("decomp.typo_fail")
+        for name in ("serve.worker_crash", "serve.slot_latency", "serve.poison_request"):
+            assert reg.arm(name).point == name
+        assert set(faults.FAULT_POINTS) == set(jfaults.FAULT_POINTS)
 
     def test_after_count_window(self):
         reg = FaultRegistry()
