@@ -82,8 +82,8 @@ Phases (any failure exits non-zero):
      the 8x4 auto ground state the sum of <Sz_i> against the state's total
      charge (1e-8) and correlation_profile("Sz", "Sz", ref=0) timed;
   16. the serving path, DMRG-as-a-service: a J1-J2 ladder scan of 16 rungs
-     (32 sites, J1=1, J2 over 0.30:0.65 in 8 steps, max_bond 256: bonds 8
-     ... 256, two sweeps each, davidson_iters=6, f64), one slot of 8 through
+     (32 sites, J1=1, J2 over 0.30:0.65 in 8 steps, max_bond 128: bonds 8
+     ... 128, two sweeps each, davidson_iters=6, f64), one slot of 8 through
      DMRGService(max_batch=8) warmed on the scan's own problems at slot size
      8: problems/s, solve seconds, seconds per sweep and per stage, block
      GEMM launches by variant, captures during and after warmup, peak
@@ -94,7 +94,26 @@ Phases (any failure exits non-zero):
      version (1e-12 relative) and against 8 per-problem launches (1e-13),
      timed beside their total and bmm + index_add_; then the README's CLI
      quickstart with --check as a subprocess;
-  17. summary lines, then {"ok": true, "device": {...}} as the last line.
+  17. distributed DMRG: the 8x4 J1-J2 cylinder (J2=0.5, f64) through
+     run_dmrg(spmd=True) under torchrun (scripts/spmd_dmrg.py), ranks
+     sharing the card: one rank on NCCL, then 1x2 and 2x2 meshes on gloo
+     (NCCL refuses two ranks on one card), SPMD_BONDS one sweep each,
+     davidson_iters=2.  Per world: seconds per sweep, spmd.stats(), block
+     GEMM launches per rank by variant (counted from just before run_dmrg to
+     just after it); asserts launches > 0 on every rank, every ladder
+     counter zero, no graph captured, no agreement mismatch, energies equal
+     on every rank and within 1e-10 of the single-process
+     run_dmrg(algo="batched", jit_matvec=True) at the same schedule; each
+     rank's largest chunk run again after the run against its plain version
+     (1e-12 relative), timed beside it, bmm + index_add_ and its bound;
+  18. the plan store: the auto 8x4 run at bonds (128, 256) in one process
+     on an empty store (scripts/plan_store_run.py), then in a fresh process
+     on the primed store: 0 plan builds, every capture in the warmup before
+     the first sweep (as many as the cold run's sweeps took), none in the
+     sweeps, energies within 1e-10 of the cold run's; then the serve CLI
+     with --warmup and --plan-store, and a fresh CLI process on that store
+     with --check reporting 0 plan builds;
+  19. summary lines, then {"ok": true, "device": {...}} as the last line.
 Needs a CUDA card; exits non-zero without one, printing no result.
 """
 from __future__ import annotations
@@ -141,12 +160,25 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # float32 by both, so bf16 adds only the output's own rounding.
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
 # The served scan of phase 16: the J1-J2 ladder (Ly=2 strip of the paper's
-# spins model) at 16 rungs, the J2 values of one slot, the largest bond.
-SERVE_MODEL, SERVE_SITES, SERVE_BOND = "j1j2_ladder", 32, 256
+# spins model) at 16 rungs, the J2 values of one slot, the largest bond
+# (cut from 256 to 128 to keep the script near half its time limit).
+SERVE_MODEL, SERVE_SITES, SERVE_BOND = "j1j2_ladder", 32, 128
 SERVE_J2 = tuple(float(j) for j in np.linspace(0.30, 0.65, 8))
 # The README's CLI quickstart, run with --check on the card.
 SERVE_CLI = ["--model", "heisenberg", "--n-sites", "8", "--max-bond", "16", "--sweep", "J=0.8:1.2:4",
              "--sweep", "h=0.2:0.4:2", "--batch", "4", "--check"]
+# Phase 17: the spmd worlds (ranks, backend, mesh) on the one card, and the
+# bond schedule, cut from BONDS so that the phase takes about two minutes:
+# the eager matvec with two collectives per bucket took 24 / 62 / 119 s at
+# worlds 1 / 2 / 4 over (16, 64, 128) on an H100 (scripts/spmd_dmrg.py).
+SPMD_WORLDS = ((1, "nccl", "1x1"), (2, "gloo", "1x2"), (4, "gloo", "2x2"))
+SPMD_BONDS = (16, 64)
+# Phase 18: the cold and primed runs' bonds, and the serve CLI on a store
+# primed by --warmup (the same group: model, sites, bond, h=0).
+STORE_BONDS = (128, 256)
+STORE_WARMUP = "heisenberg,m=8,n=6"
+STORE_CLI = ["--model", "heisenberg", "--n-sites", "6", "--max-bond", "8", "--sweep", "J=0.9:1.1:2",
+             "--batch", "2", "--check"]
 # Full-width logits with the weights cast to float32, kernel path vs plain
 # path, per token: max over (b, s) of ||got - want|| / ||want|| over the
 # vocabulary.  The control that must read above it: the plain path with the
@@ -1327,6 +1359,114 @@ def serve_path(dev):
     return rec
 
 
+# ---------------------------------------------------------------- phase 17
+def spmd_path(dev, space, terms, mpo):
+    """run_dmrg(spmd=True) on the 8x4 cylinder in each of SPMD_WORLDS (see
+    phase 17 above), against the single-process batched run."""
+    import shutil
+
+    from repro_torch.core import run_dmrg
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = run_dmrg(space, terms, len(mpo), bond_schedule=SPMD_BONDS, sweeps_per_bond=1, davidson_iters=2, mpo=mpo,
+                   algo="batched", jit_matvec=True, device=dev)
+    torch.cuda.synchronize()
+    rec = {"bonds": SPMD_BONDS, "reference": dict(energies=ref.energies, wall_s=time.perf_counter() - t0,
+                                                   seconds=[s.seconds for s in ref.sweep_stats])}
+    log("  single-process batched " + json.dumps(rec["reference"]))
+    rec["worlds"] = []
+    for world, backend, mesh in SPMD_WORLDS:
+        out = ROOT / "chiprun_out" / f"spmd_{world}"
+        shutil.rmtree(out, ignore_errors=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(world),
+             str(ROOT / "scripts" / "spmd_dmrg.py"), "--backend", backend, "--mesh", mesh, "--probe",
+             "--bonds", ",".join(map(str, SPMD_BONDS)), "--davidson-iters", "2", "--out", str(out)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"spmd world {world} ({backend}, {mesh}) exited {proc.returncode}: {proc.stdout[-1500:]} "
+                 f"{proc.stderr[-3000:]}")
+        ranks = [json.loads((out / f"{r}.json").read_text()) for r in range(world)]
+        r0 = ranks[0]
+        row = dict(world=world, backend=backend, mesh=mesh, wall_s=wall, run_s=[r["wall_s"] for r in ranks],
+                   seconds=r0["seconds"], energies=r0["energies"], spmd=r0["spmd"], policy=r0["policy"],
+                   launches=[sum(r["block_gemm_launches"].values()) for r in ranks],
+                   variant_launches=[r["block_gemm_launches"] for r in ranks],
+                   largest_chunk=[r["largest_chunk"] for r in ranks],
+                   max_abs_diff=max(abs(a - b) for r in ranks for a, b in zip(r["energies"], ref.energies)))
+        log("  world " + json.dumps(row))
+        rec["worlds"].append(row)
+        for r in ranks:
+            lad = r["ladder"]
+            if lad["retries"] or lad["degradations"] or lad["svd_retries"] or any(lad["svd_degradations"].values()) \
+                    or any(lad["pair_retries"]):
+                fail(f"spmd world {world} rank {r['rank']}: a ladder recovered something: {lad}")
+            if sum(r["block_gemm_launches"].values()) == 0:
+                fail(f"spmd world {world} rank {r['rank']} launched no block GEMM")
+            if r["graph_captures"] or r["policy"]["mismatches"] or r["backend_counts"]["spmd"] == 0:
+                fail(f"spmd world {world} rank {r['rank']}: captures {r['graph_captures']}, mismatches "
+                     f"{r['policy']['mismatches']}, backend counts {r['backend_counts']}")
+            if r["energies"] != r0["energies"]:
+                fail(f"spmd world {world}: rank {r['rank']} energies {r['energies']} differ from rank 0's")
+            if not r["largest_chunk"]["rel_err"] <= TOL[torch.float64]:
+                fail(f"spmd world {world} rank {r['rank']}: largest chunk vs plain {r['largest_chunk']}")
+        if not row["max_abs_diff"] < 1e-10:
+            fail(f"spmd world {world}: energies {r0['energies']} vs single-process {ref.energies}")
+    del ref
+    return rec
+
+
+# ---------------------------------------------------------------- phase 18
+def plan_store_path():
+    """The cold and the primed process on one plan store, then the serve CLI
+    on a store primed by --warmup (see phase 18 above)."""
+    import shutil
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    store = ROOT / "chiprun_out" / "plan_store"
+    shutil.rmtree(store, ignore_errors=True)
+    runs = []
+    for phase in ("cold", "primed"):
+        proc = subprocess.run([sys.executable, str(ROOT / "scripts" / "plan_store_run.py"), "--store", str(store),
+                               "--bonds", ",".join(map(str, STORE_BONDS))],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600, env=env)
+        if proc.returncode != 0:
+            fail(f"plan store {phase} run exited {proc.returncode}: {proc.stderr[-3000:]}")
+        line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("PLAN_STORE_RUN "))
+        runs.append(json.loads(line[len("PLAN_STORE_RUN "):]))
+        log(f"  {phase} " + json.dumps({k: v for k, v in runs[-1].items() if k != "store"}))
+    cold, primed = runs
+    rec = dict(bonds=STORE_BONDS, cold=cold, primed=primed,
+               max_abs_diff=max(abs(a - b) for a, b in zip(cold["energies"], primed["energies"])))
+    if cold["plan_builds"] == 0 or primed["plan_builds"] != 0:
+        fail(f"plan builds cold {cold['plan_builds']}, primed {primed['plan_builds']} (want > 0 and 0)")
+    if sum(primed["sweep_captures"]) != 0 or primed["warmup"]["captures"] != sum(cold["sweep_captures"]):
+        fail(f"captures: cold sweeps {cold['sweep_captures']}, primed warmup {primed['warmup']}, primed sweeps "
+             f"{primed['sweep_captures']}")
+    if not rec["max_abs_diff"] < 1e-10:
+        fail(f"primed energies {primed['energies']} vs cold {cold['energies']}")
+
+    cli_store = ROOT / "chiprun_out" / "plan_store_cli"
+    shutil.rmtree(cli_store, ignore_errors=True)
+    rec["cli"] = []
+    for args in (["--warmup", STORE_WARMUP, "--batch", "2"], STORE_CLI):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.serve", *args, "--plan-store", str(cli_store)],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600, env=env)
+        rec["cli"].append(dict(args=args, returncode=proc.returncode, seconds=time.perf_counter() - t0,
+                               tail=proc.stdout.strip().splitlines()[-6:]))
+        log("  cli " + json.dumps(rec["cli"][-1]))
+        if proc.returncode != 0:
+            fail(f"serve CLI {args} exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    out = proc.stdout
+    if "CHECK OK" not in out or "plan store: 0 plan builds" not in out:
+        fail(f"the serve CLI on the primed store: {out[-1500:]}")
+    return rec
+
+
 def timed(fns, reps):
     """Each function's time, the faster of two interleaved CUDA-event means."""
     runs = {k: [] for k in fns}
@@ -1495,7 +1635,16 @@ def main():
         f"{len(SERVE_J2)} J2 values; then the CLI quickstart with --check")
     record["serve"] = served = serve_path(dev)
 
-    # ---- phase 17: summary
+    # ---- phase 17: distributed DMRG
+    log(f"phase 17: run_dmrg(spmd=True) on the 8x4 cylinder, bonds {SPMD_BONDS}, worlds {SPMD_WORLDS}")
+    record["spmd"] = spmd_rec = spmd_path(dev, space, terms, mpo)
+
+    # ---- phase 18: the plan store
+    log(f"phase 18: the plan store: auto 8x4 at bonds {STORE_BONDS} cold, then primed in a fresh process; the "
+        f"serve CLI with --warmup and --plan-store")
+    record["plan_store"] = store_rec = plan_store_path()
+
+    # ---- phase 19: summary
     total = lambda k: sum(r[k] for r in mid)
     bound_ops = sum(r["bound_ms"] for r in mid if r["bound_by"] == "operations")
     bucket = planned["largest_bucket"]
@@ -1503,8 +1652,9 @@ def main():
         name="block_gemm", route="cuda", source="src/repro_torch/kernels/block_gemm/block_gemm.cu",
         replaces="src/repro/kernels/block_gemm/kernel.py:59",
         launches=(launches["block_gemm"] + planned["launches"]["block_gemm"] + auto["launches"]["block_gemm"]
-                  + served["launches"]["block_gemm"]),
-        max_abs_err=max([r["max_abs_err"] for r in mid] + [bucket["max_abs_err"]]), ms=total("ms"),
+                  + served["launches"]["block_gemm"] + sum(sum(w["launches"]) for w in spmd_rec["worlds"])),
+        max_abs_err=max([r["max_abs_err"] for r in mid] + [bucket["max_abs_err"]]
+                        + [c["max_abs_err"] for w in spmd_rec["worlds"] for c in w["largest_chunk"]]), ms=total("ms"),
         plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
         bound_by="operations" if bound_ops >= total("bound_ms") / 2 else "bytes",
         library_ms=total("library_ms"), variants=gemm_variants,
@@ -1519,7 +1669,13 @@ def main():
                "serve (phase 16; ms etc.: the largest folded bucket of the middle-bond stacked matvec)": dict(
                    launches=served["launches"]["block_gemm"], variants=served["variant_launches"],
                    **{k: served["largest_folded_bucket"][k] for k in
-                      ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "separate_ms", "max_abs_err")})},
+                      ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "separate_ms", "max_abs_err")}),
+               **{f"spmd world {w['world']} {w['backend']} {w['mesh']} (phase 17; launches per rank; ms etc.: rank "
+                  f"0's largest chunk)": dict(
+                   launches=w["launches"], variants=w["variant_launches"],
+                   **{k: w["largest_chunk"][0][k] for k in
+                      ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")})
+                  for w in spmd_rec["worlds"]}},
     )]
     for name, arch, replaces in (
         ("flash_attention", "llama3_8b", "src/repro/kernels/flash_attention/kernel.py:70"),
@@ -1570,6 +1726,19 @@ def main():
         f"{served['captures_after_warmup']} after, peak {served['peak_gib']:.2f} GiB; singles |dE| {single_diffs}; "
         f"folded bucket {fb['ms']:.4f} ms (8 separate {fb['separate_ms']:.4f}, bmm + index_add_ "
         f"{fb['library_ms']:.4f}, bound {fb['bound_ms']:.4f}); CLI {served['cli']['seconds']:.1f} s")
+    for w in spmd_rec["worlds"]:
+        c = w["largest_chunk"][0]
+        log(f"spmd world {w['world']} ({w['backend']}, {w['mesh']}): {w['run_s'][0]:.1f} s run ({w['wall_s']:.1f} s "
+            f"with start-up), sweeps {[round(x, 2) for x in w['seconds']]} s, |dE| vs single process "
+            f"{w['max_abs_diff']:.1e}, block_gemm per rank {w['launches']}, {w['spmd']['gemm_calls']} split GEMMs "
+            f"({w['spmd']['fallback_calls']} fallbacks); rank 0's largest chunk {c['shape']} {c['ms']:.4f} ms (plain "
+            f"{c['plain_ms']:.4f}, bmm + index_add_ {c['library_ms']:.4f}, bound {c['bound_ms']:.4f})")
+    cold, primed = store_rec["cold"], store_rec["primed"]
+    log(f"plan store: cold {cold['plan_builds']} plan builds, {sum(cold['sweep_captures'])} captures in its sweeps, "
+        f"first sweep {cold['seconds'][0]:.2f} s; primed 0 builds, {primed['warmup']['captures']} captures in "
+        f"{primed['warmup']['seconds']:.2f} s of warmup and {sum(primed['sweep_captures'])} in its sweeps, first sweep "
+        f"{primed['seconds'][0]:.2f} s; |dE| {store_rec['max_abs_diff']:.1e}; CLI warmup "
+        f"{store_rec['cli'][0]['seconds']:.1f} s, CLI on the store {store_rec['cli'][1]['seconds']:.1f} s")
     log(f"total {record['total_s']:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -12,11 +12,16 @@ stacked, and cross to the host with a single ``.cpu()``.  The residual norm
 comes from the Gram identity ||A x - lam x||^2 = s^T W s - lam^2 without
 another sync; below the identity's cancellation floor (about
 sqrt(eps)·|lam|) the residual vector's norm is measured instead.
+
+Every value the host decides on crosses through ``host`` (default: a plain
+copy to the host).  Under a distributed policy it is the policy's
+``host_values``, which gives every rank rank 0's numbers, so the break and
+restart decisions agree across ranks (``dist/shard.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,11 +52,18 @@ class DavidsonInfo:
     exhausted: bool = False
 
 
-def _new_columns(V, AV, i) -> np.ndarray:
+HostRead = Callable[[torch.Tensor], np.ndarray]
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _new_columns(V, AV, i, host: HostRead) -> np.ndarray:
     """M[j, i] and W[j, i] for j <= i: one stack on the device, one sync."""
     vals = [V[j].inner(AV[i]) for j in range(i + 1)]
     vals += [AV[j].inner(AV[i]) for j in range(i + 1)]
-    return np.real(torch.stack(vals).cpu().numpy())
+    return np.real(host(torch.stack(vals)))
 
 
 def davidson(
@@ -60,14 +72,17 @@ def davidson(
     n_iter: int = 2,
     tol: float = 1e-10,
     seed: int = 0,
+    host: Optional[HostRead] = None,
 ) -> Tuple[float, BlockSparseTensor, DavidsonInfo]:
     """Return (smallest eigenvalue, eigenvector approximation, health info).
 
     A non-finite Rayleigh-Ritz entry at the per-iteration sync raises
     ``NumericalHealthError(stage="davidson")``.  A restart draws its random
     direction from a ``torch.Generator`` seeded with ``seed + i`` on the
-    vector's device.
+    vector's device.  ``host`` reads a device tensor on the host (see the
+    module docstring).
     """
+    host = host or _to_host
     info = DavidsonInfo()
     # injected non-convergence: the residual break is suppressed, so the
     # solve runs its full budget and reports converged=False
@@ -76,7 +91,7 @@ def davidson(
     V = [x]
     AV = [matvec(x)]
     if n_iter <= 0:
-        lam = float(np.real(V[0].inner(AV[0]).cpu().numpy()))
+        lam = float(np.real(host(V[0].inner(AV[0]))))
         if not np.isfinite(lam):
             raise NumericalHealthError("non-finite Rayleigh quotient", stage="davidson")
         return lam, x, info
@@ -87,7 +102,7 @@ def davidson(
     lam = 0.0
 
     for i in range(n_iter):
-        cols = _new_columns(V, AV, i)
+        cols = _new_columns(V, AV, i, host)
         if not np.isfinite(cols).all():
             raise NumericalHealthError(
                 f"non-finite Rayleigh-Ritz entries at iteration {i}", stage="davidson"
@@ -115,7 +130,7 @@ def davidson(
         if qn2_gram > GRAM_NOISE_FLOOR * max(1.0, lam * lam):
             qn = float(np.sqrt(qn2_gram))
         else:
-            qn = float(q.norm())
+            qn = float(host(q.norm()))
         if qn < tol and not force_no_converge:
             info.converged = True
             break
@@ -123,7 +138,7 @@ def davidson(
         # modified Gram-Schmidt vs all v_j, randomize on breakdown (paper)
         for j in range(i + 1):
             q = q - V[j].scale(V[j].inner(q))
-        qn2 = float(q.norm())
+        qn2 = float(host(q.norm()))
         if qn2 < GS_BREAKDOWN_TOL * max(qn, 1.0):
             # restart with A·(random), so the new direction lies in range(A)
             info.restarts += 1
@@ -131,7 +146,7 @@ def davidson(
             q = matvec(BlockSparseTensor.random(x.indices, x.charge, generator=gen, dtype=x.dtype))
             for j in range(i + 1):
                 q = q - V[j].scale(V[j].inner(q))
-            qn2 = float(q.norm())
+            qn2 = float(host(q.norm()))
             if qn2 < GS_BREAKDOWN_TOL * max(qn, 1.0):
                 info.exhausted = True
                 break  # subspace exhausted; accept the current Ritz pair

@@ -5,6 +5,7 @@ over all sites multiple times for each successive bond dimension choice."
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence
 
@@ -15,7 +16,7 @@ from .checkpoint import CheckpointManager, pack_run_state, tensor_restore, unpac
 from .mpo import build_mpo, compress_mpo
 from .mps import MPS, neel_states, product_state_mps
 from .siteops import LocalSpace
-from .sweep import DMRGEngine, SweepStats, unported
+from .sweep import DMRGEngine, SweepStats
 
 
 @dataclasses.dataclass
@@ -31,6 +32,9 @@ class DMRGResult:
     # backend dispatch, the SVD and environment stages; {} for a bare
     # contractor
     engine_stats: Dict = dataclasses.field(default_factory=dict)
+    # with a plan store: what ``persist.warmup`` did before the first sweep
+    # (structures replayed, graph captures, seconds); {} without one
+    warmup: Dict = dataclasses.field(default_factory=dict)
 
     @property
     def energies(self) -> List[float]:
@@ -85,11 +89,58 @@ def run_dmrg(
     ``checkpoint_keep`` files; a rerun with the same arguments resumes from
     the newest checkpoint, mid-sweep if that is where it died, with the
     uninterrupted run's energies (``core/checkpoint.py``).  A resumed run
-    captures its CUDA graphs again.  ``plan_store``, ``shard_policy`` and
-    ``spmd`` are not ported yet and raise ``NotImplementedError``.
+    captures its CUDA graphs again.
+
+    ``plan_store`` (a ``dist.PlanStore`` or a path) activates the persistent
+    plan store for this run (``dist/persist.py``): plans are loaded from it
+    and written back, and before the first sweep the engine captures every
+    padded structure the store records for this environment
+    (``persist.warmup``), so a run on a primed store builds no plan and
+    captures no graph while it sweeps.  The energies equal a cold run's.
+
+    ``spmd=True`` distributes the run over a ``torch.distributed`` mesh
+    (``dist/shard.py``, ``dist/spmd.py``): every bucketed GEMM of the matvec
+    and the environment updates is split over the ranks, the pairs over
+    "row" and the output columns over "col".  It implies ``jit_matvec=True``
+    (padded operands; the matvec itself runs eagerly, since its collectives
+    cannot be captured) and needs an engine ``algo``.  Without a
+    ``shard_policy`` a policy over the whole world is built, on ``device``'s
+    type; in a process with no process group the world is this process
+    alone.  A given policy must be in "spmd" mode.  ``shard_policy`` alone
+    (``spmd=False``) runs under that policy as it is, e.g. in "storage"
+    mode.  The tensors live on the policy's rank device.  Energies equal the
+    single-process run to <1e-10 (``tests/test_torch_spmd.py``).
     """
-    unported(shard_policy=shard_policy, spmd=spmd, plan_store=plan_store)
     device = resolve_device(device)
+    if spmd:
+        if shard_policy is None:
+            from ..dist.shard import BlockShardPolicy, make_block_mesh
+
+            shard_policy = BlockShardPolicy(make_block_mesh(device=device), mode="spmd")
+        elif shard_policy.mode != "spmd":
+            raise ValueError(
+                f"spmd=True needs a shard_policy with mode='spmd', got mode={shard_policy.mode!r} "
+                f"(storage-mode policies keep the gather-before-compute path; pass spmd=False for that)"
+            )
+        jit_matvec = True
+    if shard_policy is not None:
+        device = shard_policy.device
+    with contextlib.ExitStack() as stack:
+        store = None
+        if plan_store is not None:
+            from ..dist import persist
+
+            store = stack.enter_context(persist.using_store(plan_store))
+        return _run_dmrg_body(
+            space, terms, n_sites, bond_schedule, sweeps_per_bond, cutoff, algo, davidson_iters, mpo_cutoff,
+            initial_states, dtype, verbose, jit_matvec, pad_matvec, shard_policy, svd_method, jit_env, mpo,
+            checkpoint_dir, checkpoint_every, checkpoint_keep, store, device,
+        )
+
+
+def _run_dmrg_body(space, terms, n_sites, bond_schedule, sweeps_per_bond, cutoff, algo, davidson_iters,
+                   mpo_cutoff, initial_states, dtype, verbose, jit_matvec, pad_matvec, shard_policy, svd_method,
+                   jit_env, mpo, checkpoint_dir, checkpoint_every, checkpoint_keep, store, device) -> DMRGResult:
     if mpo is None:
         mpo = build_mpo(space, terms, n_sites, dtype=dtype, device=device)
         if mpo_cutoff is not None:
@@ -112,10 +163,16 @@ def run_dmrg(
         sweep_resume = state["sweep_resume"]
     engine = DMRGEngine(
         mps, mpo, algo=algo, davidson_iters=davidson_iters, jit_matvec=jit_matvec, pad_matvec=pad_matvec,
-        svd_method=svd_method, jit_env=jit_env, restored_envs=restored_envs, device=device,
+        shard_policy=shard_policy, svd_method=svd_method, jit_env=jit_env, restored_envs=restored_envs,
+        device=device,
     )
     if state is not None:
         engine.seed = int(state["seed"])
+    warmup = {}
+    if store is not None and engine._engine is not None:
+        from ..dist import persist
+
+        warmup = persist.warmup(engine._engine, store, device)
 
     def snapshot(bi: int, si: int, resume_state):
         return pack_run_state(step=step, bond_idx=bi, sweep_idx=si, sweep_resume=resume_state,
@@ -149,4 +206,5 @@ def run_dmrg(
                 )
     return DMRGResult(energy=stats[-1].energy, mps=engine.mps, sweep_stats=stats,
                       checkpoint_seconds=ckpt.save_seconds if ckpt is not None else 0.0,
-                      engine_stats=engine.contract_fn.stats() if engine._engine is not None else {})
+                      engine_stats=engine.contract_fn.stats() if engine._engine is not None else {},
+                      warmup=warmup)

@@ -38,6 +38,16 @@ An error on the last rung propagates.
 
 ``sweep(resume=, on_site=)`` and ``restored_envs`` carry a run across a
 crash (``core/checkpoint.py``).
+
+A ``shard_policy`` (``dist/shard.py``) distributes the run over a
+``torch.distributed`` mesh.  Every rank runs this whole sweep.  In "spmd"
+mode the MPS and MPO are moved to the rank's device once, here, and the
+engine splits every bucketed GEMM of the matvec and the environment
+updates over the ranks (``dist/spmd.py``); in "storage" mode the stored
+tensors are sharded and gathered before each use.  Either way every host
+decision (Davidson's, the truncation's) is taken on rank 0's values
+(``BlockShardPolicy.host_values``), so the ranks issue the same
+collectives.
 """
 from __future__ import annotations
 
@@ -59,21 +69,6 @@ from .env import extend_left, extend_right, get_contractor, left_edge, matvec_tw
 from .mps import MPS
 
 SVD_METHODS = (None, "unplanned", "svd", "randomized", "auto")
-
-
-def unported(**args) -> None:
-    """Raise for any argument of the reference API that this port does not
-    carry yet, naming the ROADMAP item that brings it."""
-    where = {
-        "shard_policy": "Queue 1 #12 (multi-GPU)",
-        "spmd": "Queue 1 #12 (multi-GPU)",
-        "plan_store": "Queue 1 #11 (persistence)",
-    }
-    for name, value in args.items():
-        if value not in (None, False):
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet: ROADMAP {where[name]}"
-            )
 
 
 @dataclasses.dataclass
@@ -125,7 +120,9 @@ class DMRGEngine:
     """Alternating two-site optimization with incremental environments.
 
     ``device=None`` means the CUDA card (raising when there is none); the
-    MPS and MPO must already lie on the resolved device.
+    MPS and MPO must already lie on the resolved device.  ``shard_policy``
+    (a ``BlockShardPolicy``, engine backends only) distributes the run; see
+    the module docstring.
     """
 
     def __init__(
@@ -144,7 +141,6 @@ class DMRGEngine:
         restored_envs=None,
         device=None,
     ):
-        unported(shard_policy=shard_policy)
         if mps.n_sites != len(mpo):
             raise ValueError(f"MPS has {mps.n_sites} sites, MPO {len(mpo)}")
         if svd_method not in SVD_METHODS:
@@ -176,8 +172,19 @@ class DMRGEngine:
                         f"{name} requires a ContractionEngine backend, not {backend}; bare "
                         f"contractors use the per-sector svd_split and extend_left/extend_right"
                     )
+            if shard_policy is not None:
+                raise ValueError(f"shard_policy requires a ContractionEngine backend, not {backend}")
             self.svd_planned = False
             self.jit_env = False
+        self.shard_policy = shard_policy
+        self._host = shard_policy.host_values if shard_policy is not None else None
+        if self._engine is not None:
+            # the policy is set (or reset) on the engine, as the reference does
+            self.contract_fn.policy = shard_policy
+            self.contract_fn.decomp.host = self._host
+        if shard_policy is not None:
+            self.mps.tensors = shard_policy.place_mps(self.mps.tensors)
+            self.mpo = shard_policy.place_mps(self.mpo)
         self.davidson_iters = davidson_iters
         self.seed = seed
         self.n = mps.n_sites
@@ -203,10 +210,10 @@ class DMRGEngine:
         T, W = self.mps.tensors, self.mpo
         self.left_envs: List[Optional[BlockSparseTensor]] = [None] * (n + 1)
         self.right_envs: List[Optional[BlockSparseTensor]] = [None] * (n + 1)
-        self.left_envs[0] = left_edge(T[0], W[0])
-        self.right_envs[n - 1] = right_edge(T[n - 1], W[n - 1])
+        self.left_envs[0] = self._place(left_edge(T[0], W[0]))
+        self.right_envs[n - 1] = self._place(right_edge(T[n - 1], W[n - 1]))
         for j in range(n - 2, 0, -1):
-            self.right_envs[j] = self._extend_right_env(j)
+            self.right_envs[j] = self._place(self._extend_right_env(j))
 
     def _extend_left_env(self, j: int) -> BlockSparseTensor:
         """A_{j+1} from A_j: absorb site j into the left environment."""
@@ -237,8 +244,16 @@ class DMRGEngine:
 
     def _padded_mpo(self, j: int) -> BlockSparseTensor:
         if self._mpo_padded[j] is None:
-            self._mpo_padded[j] = pad_block_sparse(self.mpo[j])
+            self._mpo_padded[j] = pad_block_sparse(self._whole(self.mpo[j]))
         return self._mpo_padded[j]
+
+    def _place(self, t: BlockSparseTensor) -> BlockSparseTensor:
+        """A stored tensor (site or environment) placed per the policy."""
+        return t if self.shard_policy is None else self.shard_policy.place(t)
+
+    def _whole(self, t: BlockSparseTensor) -> BlockSparseTensor:
+        """A stored tensor whole on this rank (gathered in storage mode)."""
+        return t if self.shard_policy is None else self.shard_policy.replicated(t)
 
     def _optimize_pair(self, j: int, max_bond: int, cutoff: float, absorb: str):
         """Optimize pair (j, j+1), redoing it on the seed rung on failure.
@@ -261,20 +276,21 @@ class DMRGEngine:
         ``contract``, Davidson on it, the per-sector SVD), on the run's
         device, with no engine involved."""
         T, W = self.mps.tensors, self.mpo
-        A, B, Wj, Wj1 = self.left_envs[j], self.right_envs[j + 1], W[j], W[j + 1]
-        theta = contract(T[j], T[j + 1], ((2,), (0,)))
+        A, B, Wj, Wj1, Tj, Tj1 = (self._whole(t) for t in (self.left_envs[j], self.right_envs[j + 1], W[j],
+                                                            W[j + 1], T[j], T[j + 1]))
+        theta = contract(Tj, Tj1, ((2,), (0,)))
         lam, theta, dinfo = davidson(lambda x: matvec_two_site(A, Wj, Wj1, B, x, contract), theta,
-                                     n_iter=self.davidson_iters, seed=self.seed + j)
+                                     n_iter=self.davidson_iters, seed=self.seed + j, host=self._host)
         t_svd = time.perf_counter()
-        U, V, _, err = svd_split(theta, 2, max_bond=max_bond, cutoff=cutoff, absorb=absorb)
+        U, V, _, err = svd_split(theta, 2, max_bond=max_bond, cutoff=cutoff, absorb=absorb, host=self._host)
         svd_dt = time.perf_counter() - t_svd
-        T[j] = flip_flow(U, 2)
-        T[j + 1] = flip_flow(V, 0)
+        T[j] = self._place(flip_flow(U, 2))
+        T[j + 1] = self._place(flip_flow(V, 0))
         return lam, err, svd_dt, dinfo
 
     def _optimize_pair_fast(self, j: int, max_bond: int, cutoff: float, absorb: str):
         T, W = self.mps.tensors, self.mpo
-        A, B = self.left_envs[j], self.right_envs[j + 1]
+        A, B = self._whole(self.left_envs[j]), self._whole(self.right_envs[j + 1])
         theta = self.contract_fn(T[j], T[j + 1], ((2,), (0,)))
         engine = self._engine
         pad = self.pad_matvec and engine is not None
@@ -285,22 +301,24 @@ class DMRGEngine:
             A, B, theta = pad_block_sparse(A), pad_block_sparse(B), pad_block_sparse(theta)
             Wj, Wj1 = self._padded_mpo(j), self._padded_mpo(j + 1)
         else:
-            Wj, Wj1 = W[j], W[j + 1]
+            Wj, Wj1 = self._whole(W[j]), self._whole(W[j + 1])
         if engine is not None:
             mv = engine.matvec_fn(A, Wj, Wj1, B, jit=self.jit_matvec)
         else:
             def mv(x):
                 return matvec_two_site(A, Wj, Wj1, B, x, self.contract_fn)
 
-        lam, theta, dinfo = davidson(mv, theta, n_iter=self.davidson_iters, seed=self.seed + j)
+        lam, theta, dinfo = davidson(mv, theta, n_iter=self.davidson_iters, seed=self.seed + j, host=self._host)
         if pad:
             theta = unpad_block_sparse(theta, orig_indices)
         t_svd = time.perf_counter()
-        split = engine.svd_split if self.svd_planned else svd_split
-        U, V, _, err = split(theta, 2, max_bond=max_bond, cutoff=cutoff, absorb=absorb)
+        if self.svd_planned:
+            U, V, _, err = engine.svd_split(theta, 2, max_bond=max_bond, cutoff=cutoff, absorb=absorb)
+        else:
+            U, V, _, err = svd_split(theta, 2, max_bond=max_bond, cutoff=cutoff, absorb=absorb, host=self._host)
         svd_dt = time.perf_counter() - t_svd
-        T[j] = flip_flow(U, 2)
-        T[j + 1] = flip_flow(V, 0)
+        T[j] = self._place(flip_flow(U, 2))
+        T[j + 1] = self._place(flip_flow(V, 0))
         return lam, err, svd_dt, dinfo
 
     def _graph_stats(self) -> Dict[str, float]:
@@ -355,9 +373,9 @@ class DMRGEngine:
                 pair_retries += engine.retries.get("pair", 0) - before
             te = time.perf_counter()
             if absorb == "right":
-                self.left_envs[j + 1] = self._extend_left_env(j)
+                self.left_envs[j + 1] = self._place(self._extend_left_env(j))
             else:
-                self.right_envs[j] = self._extend_right_env(j)
+                self.right_envs[j] = self._place(self._extend_right_env(j))
             env_secs += time.perf_counter() - te
             energies.append(lam)
             site_secs.append(time.perf_counter() - ts)

@@ -150,7 +150,7 @@ def bucket_operands(bucket: ShapeBucket, a_mats: BlockMats, b_mats: BlockMats):
 
 
 def execute_batched_blocks(
-    plan: ContractionPlan, a_mats: BlockMats, b_mats: BlockMats, *, use_kernel: bool = True
+    plan: ContractionPlan, a_mats: BlockMats, b_mats: BlockMats, *, use_kernel: bool = True, gemm_fn=None
 ) -> Dict[BlockKey, torch.Tensor]:
     """The bucket loop on pre-matricized blocks, returning output blocks.
 
@@ -160,16 +160,28 @@ def execute_batched_blocks(
     folded into each bucket's pair axis (the bucket's folded work list and
     output slots), still one launch per bucket, and return ``[B, ...]``
     blocks.
+
+    ``gemm_fn(lhs, rhs, oi, num_out)`` replaces the bucket's launch, with
+    ``oi`` the bucket's host (numpy) output slots: ``dist/spmd.py`` passes
+    its split GEMM here, so one bucket table drives both the single-process
+    and the SPMD execution (the reference's hook, ``dist/batch.py``).
     """
     layout = plan.batched
     first = next(iter(a_mats.values()))
     batch = first.shape[0] if first.dim() == 3 else 1
     lead = (batch,) if first.dim() == 3 else ()
+    if gemm_fn is None:
+        tables = layout.device_tables(first.device, batch)
+    else:
+        tables = [b.oi if batch == 1 else b.folded_oi(batch) for b in layout.buckets]
     out_acc: Dict[BlockKey, torch.Tensor] = {}
-    for bucket, oi in zip(layout.buckets, layout.device_tables(first.device, batch)):
+    for bucket, oi in zip(layout.buckets, tables):
         lhs, rhs = bucket_operands(bucket, a_mats, b_mats)
         O = len(bucket.out_keys)
-        out = block_sparse_matmul(lhs, rhs, oi, batch * O, work=bucket.folded_work(batch), use_kernel=use_kernel)
+        if gemm_fn is None:
+            out = block_sparse_matmul(lhs, rhs, oi, batch * O, work=bucket.folded_work(batch), use_kernel=use_kernel)
+        else:
+            out = gemm_fn(lhs, rhs, oi, batch * O)
         out = out.view(lead + (O, bucket.m, bucket.n))
         for slot, kc in enumerate(bucket.out_keys):
             piece = out[..., slot, :, :]
@@ -186,12 +198,14 @@ def execute_batched(
     a_mats: Optional[BlockMats] = None,
     b_mats: Optional[BlockMats] = None,
     use_kernel: bool = True,
+    gemm_fn=None,
 ) -> BlockSparseTensor:
     """Execute ``plan`` bucket by bucket as stacked block GEMMs.
 
     ``a_mats`` / ``b_mats`` are optional pre-matricized operand blocks
     (``matricize_lhs`` / ``matricize_rhs``) for operands fixed across many
-    calls; live operands are matricized here.
+    calls; live operands are matricized here.  ``gemm_fn`` swaps the
+    per-bucket GEMM (see ``execute_batched_blocks``).
     """
     if not plan.pairs:
         return BlockSparseTensor(plan.out_indices, {}, plan.out_charge)
@@ -199,7 +213,7 @@ def execute_batched(
         a_mats = matricize_lhs(a, plan.keep_a, plan.ax_a)
     if b_mats is None:
         b_mats = matricize_rhs(b, plan.keep_b, plan.ax_b)
-    blocks = execute_batched_blocks(plan, a_mats, b_mats, use_kernel=use_kernel)
+    blocks = execute_batched_blocks(plan, a_mats, b_mats, use_kernel=use_kernel, gemm_fn=gemm_fn)
     # fault point: NaN-poison one output block, a bad GEMM on a flaky card.
     # Skipped inside a CUDA graph capture (the counterpart of the
     # reference's tracing guard): a poisoned capture would replay the NaN

@@ -48,7 +48,7 @@ import torch
 
 from ..tensor.blocksparse import BlockSparseTensor, svd_split
 from ..tensor.qn import IN, Index, OUT, qzero
-from . import faults
+from . import faults, persist
 from .faults import RECOVERABLE, FaultInjected, NumericalHealthError
 from .plan import DecompPlanCache, DecompositionPlan, svd_flop_estimate
 
@@ -221,6 +221,9 @@ class DecompositionEngine:
         self.buckets_processed = 0
         self.rsvd_buckets = 0
         self.host_syncs = 0
+        # reads the singular values on the host; a distributed sweep sets its
+        # policy's ``host_values`` so that every rank truncates alike
+        self.host = None
         # the degradation ladder's ledger: splits whose first attempt failed,
         # and the rung that recovered each; both zero on a healthy run
         self.retries = 0
@@ -333,9 +336,15 @@ class DecompositionEngine:
         core = svd_core_body(plan, absorb, methods, sketch, self.rsvd_power_iters, self.rsvd_seed)
         bucket_out, s_cat = core([theta.blocks[k] for k in plan.block_order])
         self.record_call(plan, methods, sketch, s_cat.is_cuda)
+        if persist.active_store() is not None:
+            # the SVD stacks a plan store warms before a later run
+            for bucket, (U, s, _), method in zip(plan.buckets, bucket_out, methods):
+                if method != "rsvd":
+                    shape = (U.shape[:-2].numel(), bucket.rmax, bucket.cmax)
+                    persist.note(("svd", str(U.dtype).split(".")[-1], shape), U.device)
 
         # the split's one read on the host: every bucket's singular values
-        s_host = s_cat.cpu().numpy()
+        s_host = self.host(s_cat) if self.host is not None else s_cat.cpu().numpy()
         if not np.isfinite(s_host).all():
             raise NumericalHealthError("non-finite singular values at the truncation sync", stage="svd")
         k_out = [int(out[1].shape[-1]) for out in bucket_out]

@@ -17,12 +17,18 @@ and returns a ``BlockSparseTensor``.  Per call it fetches (or builds) the
 
 either fixed, or chosen per plan by the reference's flop-and-dispatch cost
 model ("auto", ``choose_backend``; csr joins its candidates only with
-``allow_csr``).  All compute the same charge-conserving contraction: output
-blocks agree with ``tensor.blocksparse.contract`` to rounding.
-``matvec_fn(jit=True)`` replays the planned two-site matvec as one CUDA
-graph per padded structure (``dist/graphs.py``); ``svd_split`` fronts the
-planned batched SVD (``dist/decomp.py``) and ``env_update_left/right`` the
-fused environment updates (``dist/envcore.py``).
+``allow_csr``). Under a ``BlockShardPolicy`` (``dist/shard.py``) in "spmd"
+mode every contraction takes the fifth backend, "spmd": the batched bucket
+tables executed through the SPMD bucket GEMM (``dist/spmd.py``), the pairs
+over the mesh's "row" ranks and the output columns over its "col" ranks; in
+"storage" mode every operation gathers its operands first. All compute the
+same charge-conserving contraction: output blocks agree with
+``tensor.blocksparse.contract`` to rounding. ``matvec_fn(jit=True)``
+replays the planned two-site matvec as one CUDA graph per padded structure
+(``dist/graphs.py``; eagerly under an spmd policy, whose collectives a
+graph cannot capture); ``svd_split`` fronts the planned batched SVD
+(``dist/decomp.py``) and ``env_update_left/right`` the fused environment
+updates (``dist/envcore.py``).
 
 A backend that raises a recoverable error (``faults.RECOVERABLE``: an
 injected fault or a health guard's finding) is retried down
@@ -43,6 +49,7 @@ import torch
 from ..kernels.block_gemm.ops import block_sparse_matmul
 from ..tensor.block_csr import pack_blocks
 from ..tensor.blocksparse import BlockKey, BlockSparseTensor, contract
+from . import persist, spmd as spmd_mod
 from .batch import batch_shape, execute_batched, execute_pairs, matricize_lhs, matricize_rhs
 from .decomp import DecompositionEngine
 from .envcore import EnvironmentEngine
@@ -56,9 +63,8 @@ BACKENDS = ("list", "dense", "csr", "batched")
 # which is why the paper's dense algorithm wins at small m, their Fig. 5)
 PAIR_OVERHEAD_FLOPS = 16384.0
 # the rungs a failed backend retries, those below it in this order, ending at
-# the seed ``contract``; the reference's ladder without its "spmd" rung,
-# which comes with multi-GPU execution (ROADMAP Queue 1 #12)
-CONTRACTION_LADDER: Tuple[str, ...] = ("csr", "batched", "dense", "list")
+# the seed ``contract``; "spmd" is a rung only under an spmd-mode policy
+CONTRACTION_LADDER: Tuple[str, ...] = ("spmd", "csr", "batched", "dense", "list")
 # the contracted axes of the two-site matvec's four steps: A·x, ·W_j,
 # ·W_{j+1}, ·B (core/env.matvec_two_site)
 MATVEC_AXES = (((2,), (0,)), ((1, 2), (0, 2)), ((4, 1), (0, 2)), ((4, 1), (1, 2)))
@@ -78,7 +84,8 @@ class ContractionEngine:
     model's charge per dispatch.  ``decomp`` and ``env`` are the engine's
     decomposition and environment stages, and ``graphs`` its CUDA graph
     cache, shared by the jitted matvec and the environment stage; each is
-    per engine, so ``stats()`` reports this run's counters.  ``stats()``
+    per engine, so ``stats()`` reports this run's counters.  ``policy`` is
+    a ``BlockShardPolicy`` or None (the sweep sets it).  ``stats()``
     documents the units of every counter.
     """
 
@@ -90,6 +97,7 @@ class ContractionEngine:
         use_kernel: bool = True,
         allow_csr: bool = False,
         pair_overhead: float = PAIR_OVERHEAD_FLOPS,
+        policy=None,
     ):
         if backend not in BACKENDS + ("auto",):
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS + ('auto',)}")
@@ -98,12 +106,13 @@ class ContractionEngine:
         self.use_kernel = use_kernel
         self.allow_csr = allow_csr
         self.pair_overhead = pair_overhead
+        self.policy = policy
         self.graphs = GraphCache()
         self.decomp = DecompositionEngine()
-        self.env = EnvironmentEngine(graphs=self.graphs)
-        self.backend_counts: Dict[str, int] = {k: 0 for k in BACKENDS}
-        self.backend_flops: Dict[str, float] = {k: 0.0 for k in BACKENDS}
-        self.backend_seconds: Dict[str, float] = {k: 0.0 for k in BACKENDS}
+        self.env = EnvironmentEngine(graphs=self.graphs, use_kernel=use_kernel)
+        self.backend_counts: Dict[str, int] = {k: 0 for k in BACKENDS + ("spmd",)}
+        self.backend_flops: Dict[str, float] = {k: 0.0 for k in BACKENDS + ("spmd",)}
+        self.backend_seconds: Dict[str, float] = {k: 0.0 for k in BACKENDS + ("spmd",)}
         self.flops_list = 0.0
         # the degradation ladders' ledger, stage-keyed: failed first attempts
         # and the rung that recovered each (the sweep's env and pair ladders
@@ -128,16 +137,18 @@ class ContractionEngine:
         ``b_mats`` are pre-matricized operand blocks that only the batched
         backend consumes; ``plan`` is the contraction's plan when the caller
         holds it (a graph body), else it comes from the plan cache."""
+        if self._storage_mode:
+            a, b = self.policy.replicated(a), self.policy.replicated(b)
         if plan is None:
             plan = self.cache.get(a, b, axes)
-        backend = self.backend_for(plan)
+        backend = "spmd" if self._spmd_mode else self.backend_for(plan)
         self.backend_counts[backend] += 1
         self.backend_flops[backend] += self._plan_flops(plan, backend)
         self.flops_list += plan.flops_list
         t0 = time.perf_counter()
         try:
-            if backend == "batched":
-                out = self._execute_batched(plan, a, b, a_mats=a_mats, b_mats=b_mats)
+            if backend in ("batched", "spmd"):
+                out = getattr(self, f"_execute_{backend}")(plan, a, b, a_mats=a_mats, b_mats=b_mats)
             else:
                 out = getattr(self, f"_execute_{backend}")(plan, a, b)
         except RECOVERABLE:
@@ -148,7 +159,20 @@ class ContractionEngine:
                 raise
             out = self._degraded_call(backend, plan, a, b, axes)
         self.backend_seconds[backend] += time.perf_counter() - t0
-        return out
+        return self.policy.place(out) if self._spmd_mode else out
+
+    @property
+    def _spmd_mode(self) -> bool:
+        return self.policy is not None and self.policy.mode == "spmd"
+
+    @property
+    def _storage_mode(self) -> bool:
+        return self.policy is not None and self.policy.storage_only
+
+    def _gathered(self, *ts):
+        """The operands whole on this rank: gathered under a storage-mode
+        policy, as they are otherwise."""
+        return tuple(self.policy.replicated(t) for t in ts) if self._storage_mode else ts
 
     # ------------------------------------------------------------ cost model
     def backend_for(self, plan: ContractionPlan) -> str:
@@ -194,7 +218,7 @@ class ContractionEngine:
         recovery changes the time, not the values."""
         self.note_retry("contraction")
         for rung in CONTRACTION_LADDER[CONTRACTION_LADDER.index(failed) + 1:]:
-            if rung == "csr" and not self.allow_csr:
+            if (rung == "csr" and not self.allow_csr) or (rung == "spmd" and not self._spmd_mode):
                 continue
             try:
                 out = getattr(self, f"_execute_{rung}")(plan, a, b)
@@ -218,6 +242,15 @@ class ContractionEngine:
     def _execute_batched(self, plan: ContractionPlan, a: BlockSparseTensor, b: BlockSparseTensor, *, a_mats=None,
                          b_mats=None) -> BlockSparseTensor:
         return execute_batched(plan, a, b, a_mats=a_mats, b_mats=b_mats, use_kernel=self.use_kernel)
+
+    def _execute_spmd(self, plan: ContractionPlan, a: BlockSparseTensor, b: BlockSparseTensor, *, a_mats=None,
+                      b_mats=None) -> BlockSparseTensor:
+        """The batched bucket tables through the SPMD bucket GEMM
+        (``dist/spmd.py``): pairs over "row", output columns over "col", one
+        all_reduce and one all_gather per bucket."""
+        p = self.policy
+        gemm = spmd_mod.make_spmd_gemm(p.mesh, p.row_axis, p.col_axis, use_kernel=self.use_kernel)
+        return execute_batched(plan, a, b, a_mats=a_mats, b_mats=b_mats, gemm_fn=gemm)
 
 
     def pack_csr(self, plan: ContractionPlan, a: BlockSparseTensor, b: BlockSparseTensor):
@@ -296,9 +329,16 @@ class ContractionEngine:
         operands (``serve/stacked.py``, batched backend) run the same
         pipeline with the problem axis folded into each block GEMM launch;
         their batch size joins the graph key.
+
+        Under a storage-mode policy the fixed operands are gathered once,
+        here.  Under an spmd-mode policy the matvec runs eagerly whatever
+        ``jit`` says: its bucket GEMMs issue collectives, which a CUDA graph
+        cannot capture under gloo (ROADMAP Queue 3).
         """
-        if not jit:
-            mats = self._fixed_operand_mats(A, Wj, Wj1, B) if self.backend in ("batched", "auto") else None
+        A, Wj, Wj1, B = self._gathered(A, Wj, Wj1, B)
+        if not jit or self._spmd_mode:
+            mats = (self._fixed_operand_mats(A, Wj, Wj1, B)
+                    if self.backend in ("batched", "auto") or self._spmd_mode else None)
             return lambda x: self.two_site_matvec(A, Wj, Wj1, B, x, mats=mats)
 
         ops = (A, Wj, Wj1, B)
@@ -331,6 +371,10 @@ class ContractionEngine:
                 return [lead + last.out_block_shape(k) for k in keys], (last.out_indices, last.out_charge, keys), plans
 
             key = ops_key + ((x.indices, x.charge, x_keys), lead)
+            if key not in self.graphs and persist.active_store() is not None:
+                # a structure a plan store can replay before a later run
+                persist.note(("matvec", self.backend, self.use_kernel, str(x.dtype).split(".")[-1],
+                              tuple(persist.structure_of(t) for t in (A, Wj, Wj1, B, x))), x.device)
             outs, (indices, charge, keys) = self.graphs.run(
                 key, body, prepare, [x.blocks[k] for k in x_keys], fixed, fixed_token=token
             )
@@ -369,18 +413,32 @@ class ContractionEngine:
     def svd_split(self, theta, n_row_modes, max_bond, cutoff=1e-12, absorb="right"):
         """The planned blockwise truncated SVD (``dist/decomp.py``): same
         signature and return value as ``tensor.blocksparse.svd_split``,
-        equal up to the per-singular-vector sign gauge."""
-        return self.decomp.svd_split(theta, n_row_modes, max_bond, cutoff=cutoff, absorb=absorb)
+        equal up to the per-singular-vector sign gauge.  A storage-mode
+        policy gathers theta first; an spmd-mode one places U and V."""
+        (theta,) = self._gathered(theta)
+        U, V, svals, err = self.decomp.svd_split(theta, n_row_modes, max_bond, cutoff=cutoff, absorb=absorb)
+        if self._spmd_mode:
+            U, V = self.policy.place(U), self.policy.place(V)
+        return U, V, svals, err
 
     # --------------------------------------------------------------- env API
     def env_update_left(self, A, T, W, *, mpo_padded=None) -> BlockSparseTensor:
         """The fused left environment update (``dist/envcore.py``): equal
-        to ``core.env.extend_left(A, T, W)`` block for block."""
-        return self.env.update_left(A, T, W, mpo_padded=mpo_padded)
+        to ``core.env.extend_left(A, T, W)`` block for block.  Under a
+        storage-mode policy the operands are gathered first; under an
+        spmd-mode one the three contractions run as SPMD bucket GEMMs on the
+        policy's mesh and the output is placed."""
+        return self._env_update("left", A, T, W, mpo_padded)
 
     def env_update_right(self, B, T, W, *, mpo_padded=None) -> BlockSparseTensor:
         """The fused right environment update; see ``env_update_left``."""
-        return self.env.update_right(B, T, W, mpo_padded=mpo_padded)
+        return self._env_update("right", B, T, W, mpo_padded)
+
+    def _env_update(self, side, env, T, W, mpo_padded):
+        env, T, W, mpo_padded = self._gathered(env, T, W, mpo_padded)
+        fn = self.env.update_left if side == "left" else self.env.update_right
+        out = fn(env, T, W, mpo_padded=mpo_padded, spmd_mesh=self.policy.mesh if self._spmd_mode else None)
+        return self.policy.place(out) if self._spmd_mode else out
 
     # ------------------------------------------------------------- reporting
     def stats(self) -> Dict:
@@ -402,6 +460,12 @@ class ContractionEngine:
         "contraction_seed", "env_seed", "pair_seed"); both empty on a
         healthy run.  ``graphs``: the graph cache (``GraphCache.stats``);
         ``decomp`` and ``env``: the decomposition and environment stages.
+        ``spmd``: the process-wide SPMD ledger (``dist/spmd.stats``: bucket
+        GEMM calls, fallbacks, collectives, programs), and under a policy
+        ``policy``: its mode, mesh, agreement reads and their mismatches,
+        and the storage mode's gathers.  ``plan_builds``: plans built by
+        every plan cache of the engine (the environment stage's own
+        contraction cache included); zero on a primed plan store.
         """
         return {
             "plan_cache": self.cache.stats(),
@@ -414,4 +478,8 @@ class ContractionEngine:
             "graphs": self.graphs.stats(),
             "decomp": self.decomp.stats(),
             "env": self.env.stats(),
+            "spmd": spmd_mod.stats(),
+            "policy": self.policy.stats() if self.policy is not None else None,
+            "plan_builds": sum(c.builds for c in (self.cache, self.decomp.cache, self.env.cache,
+                                                   self.env.cache.contraction_cache)),
         }

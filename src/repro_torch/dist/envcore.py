@@ -36,7 +36,7 @@ import torch
 
 from ..tensor.blocksparse import BlockSparseTensor
 from ..tensor.qn import Index
-from . import faults
+from . import faults, persist
 from .batch import batch_shape, execute_pairs, pad_block_sparse, unpad_block_sparse
 from .faults import FaultInjected
 from .graphs import GraphCache
@@ -90,25 +90,31 @@ class EnvironmentEngine:
     """
 
     def __init__(self, cache: Optional[EnvPlanCache] = None, *, graphs: Optional[GraphCache] = None,
-                 jit: bool = True, pad: bool = True):
+                 jit: bool = True, pad: bool = True, use_kernel: bool = True):
         self.cache = cache if cache is not None else EnvPlanCache()
         self.graphs = graphs if graphs is not None else GraphCache()
         self.jit = jit
         self.pad = pad
+        self.use_kernel = use_kernel
         self.env_updates = 0
         self.env_flops = 0.0
         self.env_seconds = 0.0
 
-    def update_left(self, A, T, W, *, mpo_padded: Optional[BlockSparseTensor] = None) -> BlockSparseTensor:
+    def update_left(self, A, T, W, *, mpo_padded: Optional[BlockSparseTensor] = None,
+                    spmd_mesh=None) -> BlockSparseTensor:
         """A' = A · T · W · conj(T): absorb site T into the left env.
-        ``mpo_padded`` is W already padded (the sweep pads each site once)."""
-        return self._update("left", A, T, W, mpo_padded)
+        ``mpo_padded`` is W already padded (the sweep pads each site once).
+        ``spmd_mesh`` (a ("row", "col") DeviceMesh) runs the three
+        contractions as SPMD bucket GEMMs over it (``dist/spmd.py``),
+        eagerly: collectives are not captured into a graph."""
+        return self._update("left", A, T, W, mpo_padded, spmd_mesh)
 
-    def update_right(self, B, T, W, *, mpo_padded: Optional[BlockSparseTensor] = None) -> BlockSparseTensor:
+    def update_right(self, B, T, W, *, mpo_padded: Optional[BlockSparseTensor] = None,
+                     spmd_mesh=None) -> BlockSparseTensor:
         """B' = T · W · conj(T) · B: absorb site T into the right env."""
-        return self._update("right", B, T, W, mpo_padded)
+        return self._update("right", B, T, W, mpo_padded, spmd_mesh)
 
-    def _update(self, side, env, T, W, mpo_padded=None) -> BlockSparseTensor:
+    def _update(self, side, env, T, W, mpo_padded=None, spmd_mesh=None) -> BlockSparseTensor:
         # fault point: an exception out of the fused update, standing in
         # for a capture or launch failure; raised before any work, so the
         # caller's three-call fallback starts from a clean slate
@@ -122,13 +128,18 @@ class EnvironmentEngine:
             env_p, T_p, W_p = env, T, W
         plan = self.cache.get(env_p, T_p, W_p, side)
         n_env, n_site = len(plan.env_keys), len(plan.site_keys)
-        core = env_core_body(plan)
+        if spmd_mesh is not None:
+            from .spmd import make_spmd_gemm, spmd_env_core_body
+
+            core = spmd_env_core_body(plan, make_spmd_gemm(spmd_mesh, use_kernel=self.use_kernel))
+        else:
+            core = env_core_body(plan)
         inputs = (
             [env_p.blocks[k] for k in plan.env_keys]
             + [T_p.blocks[k] for k in plan.site_keys]
             + [W_p.blocks[k] for k in plan.mpo_keys]
         )
-        if self.jit:
+        if self.jit and spmd_mesh is None:
             def body(_fixed, live, _keep):
                 return core(live[:n_env], live[n_env:n_env + n_site], live[n_env + n_site:])
 
@@ -138,7 +149,12 @@ class EnvironmentEngine:
                 return [lead + tuple(ix.sector_dim(s) for ix, s in zip(plan.out_indices, k))
                         for k in plan.out_keys], None, None
 
-            blocks, _ = self.graphs.run(("env", plan.signature, lead), body, prepare, inputs)
+            key = ("env", plan.signature, lead)
+            if key not in self.graphs and persist.active_store() is not None:
+                # a structure a plan store can replay before a later run
+                persist.note(("env", side, str(inputs[0].dtype).split(".")[-1],
+                              tuple(persist.structure_of(t) for t in (env_p, T_p, W_p))), inputs[0].device)
+            blocks, _ = self.graphs.run(key, body, prepare, inputs)
         else:
             blocks = core(inputs[:n_env], inputs[n_env:n_env + n_site], inputs[n_env + n_site:])
         out = BlockSparseTensor(plan.out_indices, dict(zip(plan.out_keys, blocks)), plan.out_charge)

@@ -301,6 +301,9 @@ class GraphCache:
     def __len__(self) -> int:
         return len(self._entries)
 
+    def __contains__(self, key: Hashable) -> bool:
+        return key in self._entries
+
     def stats(self) -> Dict[str, int]:
         return {
             "graph_captures": self.captures,

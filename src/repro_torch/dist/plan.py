@@ -21,7 +21,9 @@ composite ``env_signature``; execution lives in ``dist/envcore.py``.
 Plans hold Python/numpy metadata.  The csr and batched layouts, and the
 decomposition buckets, also memoize their index tables on each device they
 have run on, so a CUDA graph captured over them reads tables uploaded
-before the capture.
+before the capture.  Those device tables belong to the process that
+uploaded them: pickling a plan (``dist/persist.py``) strips them, and the
+loading process uploads them again at first use.
 """
 from __future__ import annotations
 
@@ -96,6 +98,9 @@ class CsrLayout:
     out_rc: Tuple[Tuple[int, int], ...]   # unpadded (rows, cols) per out slot
     dev_idx: Dict = dataclasses.field(default_factory=dict)
     _work: Optional[WorkList] = None
+
+    def __getstate__(self):
+        return {**self.__dict__, "dev_idx": {}}
 
     @property
     def work(self) -> WorkList:
@@ -179,6 +184,9 @@ class BatchedLayout:
     num_out_slots: int                    # sum over buckets of |out_keys|
     dev_idx: Dict = dataclasses.field(default_factory=dict)
     _host: Dict = dataclasses.field(default_factory=dict)  # per batch: every bucket's oi end to end, as uploaded
+
+    def __getstate__(self):
+        return {**self.__dict__, "dev_idx": {}, "_host": {}}
 
     @property
     def num_buckets(self) -> int:
@@ -407,6 +415,17 @@ class ContractionPlan:
     def num_pairs(self) -> int:
         return len(self.pairs)
 
+    def materialize(self, pair_overhead: float = 16384.0) -> "ContractionPlan":
+        """Derive the lazy layouts a run would build anyway, for the plan
+        store (the reference's): the batched layout always, the dense
+        output slices only where the cost model could choose dense (at the
+        engine's default dispatch charge)."""
+        if self.pairs:
+            _ = self.batched
+        if self.flops_dense <= self.flops_list + pair_overhead * self.num_pairs:
+            self.dense_out_slices()
+        return self
+
     def out_block_shape(self, kc: BlockKey) -> Tuple[int, ...]:
         return tuple(ix.sector_dim(s) for ix, s in zip(self.out_indices, kc))
 
@@ -466,6 +485,9 @@ class SvdBucket:
     rmax: int = 0                        # largest true R and C of its sectors
     cmax: int = 0
     dev: Dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __getstate__(self):
+        return {**self.__dict__, "dev": {}}
 
     @property
     def kp(self) -> int:
@@ -680,13 +702,21 @@ class EnvironmentPlan:
 
 
 # ------------------------------------------------------------------- caches
+# the process-wide plan store (``dist/persist.activate_store`` sets it)
+_ACTIVE_STORE = None
+
+
 class _SignatureLRU:
     """LRU cache of plans keyed by structural signature.
 
     ``hits``/``misses``/``evictions`` count lookups and capacity evictions,
-    ``builds`` the plans built (equal to ``misses``: there is no persistent
-    plan store yet, ROADMAP Queue 1 #11), ``size`` the live entries.
+    ``builds`` the plans actually built, ``size`` the live entries.
     Subclasses provide ``get``, which calls ``_get(signature, build)``.
+
+    Persistence (``dist/persist.py``): on a miss the cache consults its
+    ``store`` (else the process-wide ``_ACTIVE_STORE``) before building, and
+    writes every fresh build back, so on a primed store ``builds`` stays
+    zero.  ``kind`` names the store's subdirectory.
 
     Thread-safe, as the reference's: the serving layer (``serve/``) looks
     plans up from the worker thread while other threads submit and read
@@ -696,11 +726,14 @@ class _SignatureLRU:
     takes its contraction cache's lock, never the reverse.
     """
 
+    kind = "contraction"
+
     def __init__(self, maxsize: int = 4096):
         self.maxsize = maxsize
         self._plans: OrderedDict = OrderedDict()
         self._lock = threading.RLock()
         self.hits = self.misses = self.evictions = self.builds = 0
+        self.store = None  # a PlanStore for this cache alone (None: the active one)
 
     def _get(self, sig, build):
         with self._lock:
@@ -710,8 +743,14 @@ class _SignatureLRU:
                 self._plans.move_to_end(sig)
                 return plan
             self.misses += 1
-            self.builds += 1
-            plan = self._plans[sig] = build()
+            store = self.store if self.store is not None else _ACTIVE_STORE
+            plan = store.load_plan(self.kind, sig) if store is not None else None
+            if plan is None:
+                self.builds += 1
+                plan = build()
+                if store is not None:
+                    store.save_plan(self.kind, sig, plan)
+            self._plans[sig] = plan
             while len(self._plans) > self.maxsize:
                 self._plans.popitem(last=False)
                 self.evictions += 1
@@ -746,6 +785,8 @@ class DecompPlanCache(_SignatureLRU):
     meets a new theta structure at almost every split until it converges.
     """
 
+    kind = "decomp"
+
     def __init__(self, maxsize: int = 64):
         super().__init__(maxsize)
 
@@ -756,6 +797,8 @@ class DecompPlanCache(_SignatureLRU):
 class EnvPlanCache(_SignatureLRU):
     """LRU cache of EnvironmentPlans keyed by the composite triple signature;
     the three step plans come from ``contraction_cache``."""
+
+    kind = "env"
 
     def __init__(self, maxsize: int = 4096, contraction_cache: Optional[PlanCache] = None):
         super().__init__(maxsize)

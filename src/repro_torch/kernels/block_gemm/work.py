@@ -69,6 +69,10 @@ class WorkList:
     n_slots: int
     _dev: Dict = dataclasses.field(default_factory=dict, repr=False)
 
+    def __getstate__(self):
+        # the device tables belong to the process that uploaded them
+        return {**self.__dict__, "_dev": {}}
+
     def tables(self, device: torch.device):
         """(items, fix, tile_fix) on ``device``, uploaded once per device
         without a host sync (the sources are this list's own arrays)."""

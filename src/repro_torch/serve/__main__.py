@@ -12,9 +12,13 @@ Example (the README quickstart, on the CUDA card)::
     PYTHONPATH=src python -m repro_torch.serve --model heisenberg --n-sites 8 \\
         --max-bond 16 --sweep J=0.8:1.2:4 --sweep h=0.2:0.4:2 --batch 4 --check
 
-``--device cpu`` runs it on the CPU.  ``--warmup`` and ``--plan-store``
-(the reference's persistent plan store) are not ported yet: ROADMAP Queue 1
-#11.
+``--device cpu`` runs it on the CPU.  ``--plan-store DIR`` activates the
+persistent plan store (``dist/persist.py``) for the whole process: plans are
+loaded from it and written back, and the warmup replays the structures it
+records.  ``--warmup MODEL[,m=BOND][,n=SITES]`` (repeatable) is the
+warmup-only mode: it primes ``--plan-store`` with the named model's whole
+bond schedule at every slot size and exits; a later process on that store
+builds no plan and captures nothing that the warmup captured.
 """
 from __future__ import annotations
 
@@ -51,6 +55,59 @@ def build_grid(sweeps: List[Tuple[str, np.ndarray]]) -> List[Dict[str, float]]:
     return [{n: float(v) for n, v in zip(names, combo)} for combo in itertools.product(*(s[1] for s in sweeps))]
 
 
+def parse_warmup(arg: str, default_m: int, default_n: int):
+    """``MODEL[,m=BOND][,n=SITES]`` -> (model, max_bond, n_sites)."""
+    parts = arg.split(",")
+    model, m, n = parts[0], default_m, default_n
+    try:
+        for p in parts[1:]:
+            k, v = p.split("=", 1)
+            if k == "m":
+                m = int(v)
+            elif k == "n":
+                n = int(v)
+            else:
+                raise ValueError
+        if not model:
+            raise ValueError
+    except ValueError:
+        raise SystemExit(f"bad --warmup {arg!r}: expected MODEL[,m=BOND][,n=SITES]")
+    return model, m, n
+
+
+def run_warmup(args) -> int:
+    """Warmup-only mode: prime the plan store for each --warmup target.
+
+    For every ``MODEL,m=...`` target this runs the service warmup (one full
+    solve per power-of-two slot size, covering every bond-schedule
+    structure) against the activated ``--plan-store``, whose plans and
+    structure records it writes back.
+    """
+    from . import DMRGService, ProblemSpec
+
+    if not args.plan_store:
+        print("--warmup requires --plan-store (nowhere to persist)", file=sys.stderr)
+        return 2
+    targets = [parse_warmup(t, args.max_bond, args.n_sites) for t in args.warmup]
+    svc = DMRGService(max_batch=args.batch, start=False, plan_store=args.plan_store, device=args.device)
+    sizes = [s for s in (1, 2, 4, 8, 16, 32, 64) if s <= args.batch]
+    try:
+        for model, m, n in targets:
+            spec = ProblemSpec.make(model, n, max_bond=m, sweeps_per_bond=args.sweeps_per_bond,
+                                    davidson_iters=args.davidson_iters)
+            t0 = time.perf_counter()
+            svc.warmup(spec, sizes=sizes)
+            print(f"warmed {model} (m={m}, n={n}) x sizes {sizes} in {time.perf_counter() - t0:.1f}s "
+                  f"({svc.store_warmups[-1].get('captures', 0)} captures replayed from the store, "
+                  f"{svc.ops.retraces} in all)")
+    finally:
+        svc.shutdown()
+    st = svc.plan_store.stats()
+    print(f"plan store {st['root']}: {st['saves']} plan saves, {st['hits']} plan hits, "
+          f"{st['structure_saves']} structure records added")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.serve",
@@ -66,9 +123,11 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8, help="max batch slot size (padded to powers of two)")
     ap.add_argument("--queue", type=int, default=64, help="admission bound (backpressure threshold)")
     ap.add_argument("--no-warmup", action="store_true", help="skip the warmup solves (first batches capture)")
-    ap.add_argument("--plan-store", metavar="DIR", help="persistent plan store: not ported yet (ROADMAP Queue 1 #11)")
+    ap.add_argument("--plan-store", metavar="DIR",
+                    help="persistent plan store, activated for the whole process, primed by warmup")
     ap.add_argument("--warmup", action="append", default=[], metavar="MODEL[,m=BOND][,n=SITES]",
-                    help="warmup-only mode priming --plan-store: not ported yet (ROADMAP Queue 1 #11)")
+                    help="warmup-only mode: prime --plan-store with the named model's bond schedule at every "
+                         "slot size, then exit (repeatable)")
     ap.add_argument("--stats-json", metavar="PATH", help="write service + plan-cache stats as JSON ('-' = stdout)")
     ap.add_argument("--checkpoint-dir", metavar="DIR",
                     help="journal undelivered requests here; a restarted service with the same dir re-enqueues them")
@@ -77,15 +136,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
+    if args.warmup:
+        return run_warmup(args)
+
     from ..core import run_dmrg
-    from ..core.sweep import unported
     from ..tensor.blocksparse import BlockSparseTensor
     from . import DEVICE_LOCK, DMRGService, ProblemSpec, group_key
     from .problems import build_problem
-
-    if args.warmup:
-        raise NotImplementedError("--warmup is not ported yet: ROADMAP Queue 1 #11 (persistence)")
-    unported(plan_store=args.plan_store)
 
     grid = build_grid([parse_sweep(s) for s in args.sweep])
     specs = [
@@ -95,7 +152,7 @@ def main(argv=None) -> int:
     ]
 
     svc = DMRGService(max_batch=args.batch, max_queue=args.queue, checkpoint_dir=args.checkpoint_dir,
-                      device=args.device)
+                      plan_store=args.plan_store, device=args.device)
     try:
         if not args.no_warmup:
             sizes = [s for s in (1, 2, 4, 8, 16, 32, 64) if s <= args.batch]
@@ -111,6 +168,11 @@ def main(argv=None) -> int:
                 svc.warmup(spec, sizes=sizes)
             print(f"warmup: {len(seen)} group(s) x sizes {sizes} in {time.perf_counter() - t0:.1f}s "
                   f"({svc.ops.retraces} captures)")
+            if svc.plan_store is not None:
+                st = svc.plan_store.stats()
+                print(f"plan store: {svc.ops.engine.stats()['plan_builds']} plan builds, {st['hits']} plan hits, "
+                      f"{sum(w.get('captures', 0) for w in svc.store_warmups)} captures replayed from "
+                      f"{st['structure_loads']} structure records")
 
         rids = [svc.submit(spec, timeout=60.0) for spec in specs]
         print(f"submitted {len(rids)} problems (batch<={args.batch}, queue<={args.queue})")

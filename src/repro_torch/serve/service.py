@@ -21,7 +21,10 @@ size OUTSIDE the serving ledger, building the plans and capturing every
 graph (all bond-schedule structures x all slot sizes).  After that,
 steady-state batches of the same structures replay captured graphs only --
 ``stats()['retraces']`` counts captures since the last warmup, and the CLI
-``--check`` asserts it stays zero.
+``--check`` asserts it stays zero.  With a ``plan_store`` the warmup first
+captures every structure the store records (``dist/persist.warmup``), and
+its solves then load their plans from the store instead of building them;
+what the warmup captured anew is written back to the store.
 
 Robustness: a failed slot never takes healthy requests down with it.  A
 ``NumericalHealthError`` with a per-problem mask fails (or retries) exactly
@@ -57,7 +60,7 @@ import numpy as np
 import torch
 
 from .. import dist
-from ..core.sweep import unported
+from ..dist import persist
 from ..device import resolve_device
 from ..dist import faults
 from ..dist.faults import RECOVERABLE, FaultInjected, NumericalHealthError
@@ -129,8 +132,10 @@ class DMRGService:
         (``serve_journal.json``, atomic rewrite) and re-submitted on the
         next construction with the same directory — completed-but-
         undelivered work is recomputed, which determinism makes exact.
-    plan_store: not ported yet (ROADMAP Queue 1 #11): anything but None
-        raises ``NotImplementedError``.
+    plan_store: a ``dist.PlanStore`` or a path, activated process-wide
+        (``dist/persist.activate_store``): every plan cache loads from it and
+        writes back to it, and ``warmup`` replays its structure records and
+        flushes new ones (also at ``shutdown``).
     device: where slots are solved; None means the CUDA card (raising when
         there is none).
     """
@@ -150,8 +155,10 @@ class DMRGService:
         plan_store=None,
         device=None,
     ):
-        unported(plan_store=plan_store)
         self.device = resolve_device(device)
+        self.plan_store = persist.activate_store(plan_store) if plan_store is not None else None
+        # what the store's warmup replayed before each warmup's solves
+        self.store_warmups: List[Dict] = []
         self.ops = ops if ops is not None else StackedOps()
         self.scheduler = BatchScheduler(max_batch)
         self.max_queue = max_queue
@@ -409,6 +416,9 @@ class DMRGService:
             raise ValueError(f"warmup specs span {len(keys)} batch groups; warm each group on its own")
         space, first = built[0][0], specs[0]
         sizes = sorted({s for s in sizes if s <= max(1, self.scheduler.max_batch)})
+        if self.plan_store is not None:
+            with DEVICE_LOCK:
+                self.store_warmups.append(persist.warmup(self.ops.engine, self.plan_store, self.device))
         results = []
         for size in sizes:
             with DEVICE_LOCK:
@@ -423,6 +433,8 @@ class DMRGService:
                     ops=self.ops,
                     device=self.device,
                 ))
+        if self.plan_store is not None:
+            self.plan_store.flush()
         with self._cv:
             self._warmed.add((keys.pop(), tuple(sizes)))
             self._retrace_floor = self.ops.retraces
@@ -722,6 +734,7 @@ class DMRGService:
                 "davidson": dict(self.davidson_health),
                 "faults": faults.registry.stats(),
                 "plan_caches": dist.cache_stats(self.ops.engine),
+                "plan_store_warmups": list(self.store_warmups),
                 "device": str(self.device),
             }
 
@@ -731,3 +744,5 @@ class DMRGService:
             self._cv.notify_all()
         if self._worker is not None:
             self._worker.join(timeout=10)
+        if self.plan_store is not None:
+            self.plan_store.flush()

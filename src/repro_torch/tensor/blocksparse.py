@@ -305,6 +305,7 @@ def svd_split(
     max_bond: int,
     cutoff: float = 1e-12,
     absorb: str = "right",
+    host=None,
 ):
     """Blockwise truncated SVD across a bond (paper Fig. 1e, Sec. IV-A).
 
@@ -321,6 +322,8 @@ def svd_split(
     sector per retained charge, flowing IN on U and OUT on V, and
     ``trunc_err`` is the sum of squared discarded singular values.
     Individual U/V columns are defined up to sign (LAPACK's choice).
+    ``host`` reads the singular values on the host (default: a plain copy;
+    a distributed sweep passes its policy's ``host_values``).
     """
     if not theta.blocks:
         raise ValueError("svd_split of a tensor with no blocks")
@@ -358,7 +361,8 @@ def svd_split(
         sectors.append((q, U, S, Vh, row_keys, rdim, roff, col_keys, cdim, coff))
 
     # the one host sync of the split: every sector's singular values at once
-    s_all = torch.cat([sec[2] for sec in sectors]).cpu().numpy()
+    s_cat = torch.cat([sec[2] for sec in sectors])
+    s_all = host(s_cat) if host is not None else s_cat.cpu().numpy()
     if not np.isfinite(s_all).all():
         raise NumericalHealthError("non-finite singular values at the truncation sync", stage="svd")
     s_host, off = [], 0

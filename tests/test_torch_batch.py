@@ -108,7 +108,7 @@ def test_engine_stats_count_the_batched_backend():
     eng = ContractionEngine("batched", PlanCache())
     eng(ta, tb, AX)
     st = eng.stats()
-    assert st["backend_counts"] == {"list": 0, "dense": 0, "csr": 0, "batched": 1}
+    assert st["backend_counts"] == {"list": 0, "dense": 0, "csr": 0, "batched": 1, "spmd": 0}
     assert st["backend_flops"]["batched"] > 0 and st["backend_seconds"]["batched"] > 0
     assert st["plan_cache"] == {"hits": 0, "misses": 1, "evictions": 0, "builds": 1, "size": 1}
 

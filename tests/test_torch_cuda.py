@@ -1029,3 +1029,97 @@ def test_stacked_split_syncs_as_a_single_split(card):
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     assert buckets >= 1
     assert len(syncs) == 2 * buckets + 1 == after["host_syncs"] - before["host_syncs"]
+
+
+# ------------------------------------------------------------ distributed
+@pytest.mark.parametrize("grid", [(1, 2), (2, 2), (2, 4)])
+def test_spmd_chunk_gemm_matches_plain(card, grid):
+    """Every rank's chunk of an uneven bucket (P=7 pairs, N=45 columns) on
+    the kernel against the plain version, 1e-12 relative; one launch per
+    chunk with pairs and columns."""
+    from repro_torch.dist.spmd import chunk_bounds, chunk_gemm
+
+    rows, cols = grid
+    rng = np.random.default_rng(2)
+    P, M, K, N, O = 7, 37, 64, 45, 4
+    lhs = torch.from_numpy(rng.standard_normal((P, M, K))).to(card)
+    rhs = torch.from_numpy(rng.standard_normal((P, K, N))).to(card)
+    oi = np.array([0, 0, 1, 1, 1, 3, 3], np.int32)
+    for r in range(rows):
+        for c in range(cols):
+            (lo, hi), (c0, c1), _, _ = chunk_bounds(P, N, rows, cols, r, c)
+            if c1 == c0:
+                continue
+            chunk_rhs = rhs[lo:hi, :, c0:c1].contiguous()
+            before = kernels.LAUNCHES["block_gemm"]
+            got = chunk_gemm(lhs[lo:hi], chunk_rhs, oi[lo:hi], O)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["block_gemm"] == before + 1
+            want = block_sparse_matmul_ref(lhs[lo:hi], chunk_rhs, oi[lo:hi], O)
+            assert (got - want).abs().max().item() <= 1e-12 * max(want.abs().max().item(), 1e-300)
+
+
+def test_spmd_chunks_stay_sorted_and_zero_fill_on_the_kernel(card):
+    """A row chunk's slice of a sorted ``oi`` is sorted and reaches only some
+    output slots: the kernel writes exact zeros in the others, an empty
+    chunk gives all zeros, and the chunks add up to the whole bucket."""
+    from repro_torch.dist.spmd import chunk_bounds, chunk_gemm
+
+    rng = np.random.default_rng(3)
+    P, M, K, N, O = 5, 16, 24, 20, 5
+    lhs = torch.from_numpy(rng.standard_normal((P, M, K))).to(card)
+    rhs = torch.from_numpy(rng.standard_normal((P, K, N))).to(card)
+    oi = np.array([0, 0, 2, 4, 4], np.int32)
+    total = torch.zeros((O, M, N), dtype=torch.float64, device=card)
+    for r in range(4):  # 4 row ranks: chunks of 2, 2, 1 and 0 pairs
+        (lo, hi), _, _, _ = chunk_bounds(P, N, 4, 1, r, 0)
+        assert np.all(np.diff(oi[lo:hi]) >= 0)
+        got = chunk_gemm(lhs[lo:hi], rhs[lo:hi], oi[lo:hi], O)
+        for o in set(range(O)) - set(oi[lo:hi].tolist()):
+            assert not got[o].any()
+        total += got
+    want = block_sparse_matmul_ref(lhs, rhs, oi, O)
+    assert (total - want).abs().max().item() <= 1e-12 * want.abs().max().item()
+
+
+def test_world1_nccl_spmd_bucket_gemm(card):
+    """A world of one rank with NCCL: the split bucket GEMM issues its
+    all_reduce and all_gather on the card and equals the plain version."""
+    from repro_torch.dist import spmd
+    from repro_torch.dist.shard import make_block_mesh
+
+    mesh = make_block_mesh(device="cuda")
+    assert torch.distributed.get_backend() == "nccl" and mesh.size() == 1
+    rng = np.random.default_rng(4)
+    lhs = torch.from_numpy(rng.standard_normal((6, 32, 16))).to(card)
+    rhs = torch.from_numpy(rng.standard_normal((6, 16, 40))).to(card)
+    oi = np.array([0, 1, 1, 1, 2, 2], np.int32)
+    before, launches = spmd.stats(), kernels.LAUNCHES["block_gemm"]
+    got = spmd.spmd_bucket_gemm(lhs, rhs, oi, 3, mesh=mesh)
+    torch.cuda.synchronize()
+    after = spmd.stats()
+    assert after["all_reduce_calls"] - before["all_reduce_calls"] == 1
+    assert after["all_gather_calls"] - before["all_gather_calls"] == 1
+    assert kernels.LAUNCHES["block_gemm"] == launches + 1
+    want = block_sparse_matmul_ref(lhs, rhs, oi, 3)
+    assert (got - want).abs().max().item() <= 1e-12 * want.abs().max().item()
+
+
+def test_spmd_run_on_card_matches_batched(card):
+    """``run_dmrg(spmd=True)`` at a world of one rank on the 3x2 lattice:
+    every contraction on the spmd rung, the block GEMM launched, no graph
+    captured, the energy within 1e-10 of the graphed batched run."""
+    from repro_torch.core import run_dmrg
+    from repro_torch.core.models import heisenberg_j1j2_terms
+    from repro_torch.core.siteops import spin_half_space
+
+    sp, terms = spin_half_space(), heisenberg_j1j2_terms(3, 2, 1.0, 0.5, cylinder=False)
+    kw = dict(bond_schedule=(8, 16), davidson_iters=4, device=card)
+    ref = run_dmrg(sp, terms, 6, algo="batched", jit_matvec=True, **kw)
+    before = kernels.LAUNCHES["block_gemm"]
+    res = run_dmrg(sp, terms, 6, algo="batched", spmd=True, **kw)
+    assert kernels.LAUNCHES["block_gemm"] > before
+    st = res.engine_stats
+    assert st["backend_counts"]["spmd"] > 0 and st["graphs"]["graph_captures"] == 0
+    assert st["policy"]["mismatches"] == 0
+    assert abs(res.energy - ref.energy) < 1e-10

@@ -139,9 +139,9 @@ class TestRegistry:
 # ------------------------------------------------- guards + degradation ladder
 class TestDegradationLadder:
     def test_ladder_ordering(self):
-        """The reference's ladder without its spmd rung, fastest first,
-        ending at the seed."""
-        assert CONTRACTION_LADDER == tuple(r for r in JAX_LADDER if r != "spmd")
+        """The reference's ladder, its spmd rung included (taken only under
+        an spmd policy), fastest first, ending at the seed."""
+        assert CONTRACTION_LADDER == JAX_LADDER
         assert CONTRACTION_LADDER[-1] == "list"
 
     def test_clean_run_zero_counters(self, ref):

@@ -309,9 +309,18 @@ class TestService:
             svc.submit(ProblemSpec.make("not-a-model", 4))
         svc.shutdown()
 
-    def test_plan_store_not_ported(self):
-        with pytest.raises(NotImplementedError, match="#11"):
-            DMRGService(start=False, device="cpu", plan_store="/nonexistent")
+    def test_plan_store_not_ported(self, tmp_path):
+        """The plan store, refused before it was ported, now activates
+        process-wide and counts in ``cache_stats``."""
+        from repro_torch.dist import persist
+
+        svc = DMRGService(start=False, device="cpu", plan_store=str(tmp_path))
+        try:
+            assert persist.active_store() is svc.plan_store
+            assert cache_stats()["plan_store"]["root"] == str(tmp_path)
+        finally:
+            svc.shutdown()
+            persist.deactivate_store()
 
     def test_failed_slot_bisects_and_recovers(self):
         """A slot of mixed block structure (forced past the group key) does
@@ -531,10 +540,12 @@ def test_cli_check_on_cpu():
     assert "CHECK OK" in proc.stdout and "retraces 0" in proc.stdout
 
 
-def test_cli_refuses_what_is_not_ported():
+def test_cli_refuses_what_is_not_ported(capsys):
+    """``--warmup`` and ``--plan-store`` are ported; what the CLI still
+    refuses is a warmup with nowhere to persist and a malformed target."""
     from repro_torch.serve.__main__ import main
 
-    with pytest.raises(NotImplementedError, match="#11"):
-        main(["--device", "cpu", "--warmup", "heisenberg,m=8,n=6"])
-    with pytest.raises(NotImplementedError, match="#11"):
-        main(["--device", "cpu", "--plan-store", "/nonexistent"])
+    assert main(["--device", "cpu", "--warmup", "heisenberg,m=8,n=6"]) == 2
+    assert "requires --plan-store" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="bad --warmup"):
+        main(["--device", "cpu", "--warmup", "heisenberg,q=3", "--plan-store", "unused"])

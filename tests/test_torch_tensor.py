@@ -125,17 +125,26 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(spmd=True), dict(shard_policy=object()), dict(plan_store="store"),
+    dict(spmd=True), dict(shard_policy="storage"), dict(plan_store="store"),
 ])
-def test_unported_arguments_raise(kwargs):
-    """Arguments of the reference API that the port lacks are refused, never
-    silently ignored, and the refusal names the ROADMAP item."""
-    from repro_torch.core import run_dmrg
+def test_unported_arguments_raise(kwargs, tmp_path):
+    """The arguments of the reference API that the port refused until the
+    distributed path and the plan store came (``spmd``, ``shard_policy``,
+    ``plan_store``) now run and reach ED on a 4-site chain, and a bare
+    contractor still refuses a policy rather than ignoring it."""
+    from repro_torch.core import ground_energy, run_dmrg
     from repro_torch.core.models import heisenberg_chain_system
+    from repro_torch.dist.shard import BlockShardPolicy, make_block_mesh
 
     space, terms = heisenberg_chain_system(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_dmrg(space, terms, 4, bond_schedule=(4,), device="cpu", **kwargs)
+    if "shard_policy" in kwargs:
+        kwargs = dict(shard_policy=BlockShardPolicy(make_block_mesh(device="cpu"), mode=kwargs["shard_policy"]))
+        with pytest.raises(ValueError, match="shard_policy requires a ContractionEngine"):
+            run_dmrg(space, terms, 4, bond_schedule=(4,), algo="list_unplanned", device="cpu", **kwargs)
+    if "plan_store" in kwargs:
+        kwargs = dict(plan_store=str(tmp_path / kwargs["plan_store"]))
+    res = run_dmrg(space, terms, 4, bond_schedule=(4,), davidson_iters=4, algo="batched", device="cpu", **kwargs)
+    assert abs(res.energy - ground_energy(space, terms, 4)) < 1e-8
 
 
 @pytest.mark.parametrize("kwargs", [
