@@ -24,7 +24,7 @@ Phases (any failure exits non-zero):
      three times: the fifth sweep reaches m=1024 and the sixth truncates
      there;
   5. LM kernels vs plain: flash attention (ragged S up to 8192, GQA, head
-     dims 16-128, f32 and bf16, strict causality; flash_wgmma over S in
+     dims 16-256, f32 and bf16, strict causality, also at D=256; flash_wgmma over S in
      {1, 63, 128, 129, 1000, 2048, 8192}, D in {64, 128}, n_rep in {1, 4, 8},
      B in {1, 3}) and the RWKV6 scan (ragged T, head dims 16 and 64,
      log-decay down to -exp(6), a carried state; log-decay -exp(6) for the
@@ -37,13 +37,16 @@ Phases (any failure exits non-zero):
      beside the bf16 model's own distance from the float32 one as the
      control); then launch/serve.main (4 requests, prompt 16, generate 32);
   7. rwkv6_3b, the same (every layer's scan by the split the wrapper picks);
-  8. cached decode against prefill for both architectures at smoke size in
-     f32;
+  8. cached decode against prefill for every architecture at smoke size in
+     f32 (Whisper after priming its cross cache); one int8-KV-cache decode
+     on the card against the same decode on the CPU;
   9. flash and scan timed at the prefill's shapes against their plain
      versions (and scaled_dot_product_attention as a yardstick); the scan at
      B=1 as well, each with its bound from the split of its work between
      tensor cores, CUDA cores and bytes; flash's tolerance checked against
-     plain versions with a planted fault;
+     plain versions with a planted fault; flash_mma timed the same way at
+     pixtral_12b's (D=160) and recurrentgemma_2b's (D=256, one KV head)
+     attention shapes;
   10. the planned pipeline, run_dmrg(algo="batched", jit_matvec=True) with
      the reference's defaults (planned batched SVD, fused environment
      updates; matvec and environment updates replayed as CUDA graphs per
@@ -113,13 +116,25 @@ Phases (any failure exits non-zero):
      sweeps, energies within 1e-10 of the cold run's; then the serve CLI
      with --warmup and --plan-store, and a fresh CLI process on that store
      with --check reporting 0 plan builds;
-  19. summary lines, then {"ok": true, "device": {...}} as the last line.
+  19. the other LM families at full published width (random bf16 weights;
+     depth cut only where one card forces it, FAMILIES): codeqwen15_7b,
+     granite_3_2b, qwen15_110b, qwen2_moe_a27b, moonshot_v1_16b_a3b,
+     pixtral_12b (256 patches + 1792 tokens), recurrentgemma_2b (S = W =
+     2048) and whisper_tiny (448 tokens over 1500 frames): a warmed prefill
+     of B=4 through make_prefill_step (time, launches by variant, peak
+     memory; flash once per attention layer as the variant FAMILIES names),
+     the kernel path's logits against the plain path's in bf16 (reported)
+     and with the weights in float32 at a depth whose float32 weights fit
+     (held below F32_LOGITS_TOL, with the bf16-vs-float32 control above
+     it), then launch/serve.main (4 requests, prompt 16, generate 32);
+  20. summary lines, then {"ok": true, "device": {...}} as the last line.
 Needs a CUDA card; exits non-zero without one, printing no result.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -185,7 +200,36 @@ STORE_CLI = ["--model", "heisenberg", "--n-sites", "6", "--max-bond", "8", "--sw
 # weights in bf16 against the same path in float32.  In bf16 the kernel and
 # plain paths are compared and reported, not held: the random-init models
 # amplify one rounding through their 32 layers (scripts/lm_divergence.py).
-F32_LOGITS_TOL = {"llama3_8b": 1e-4, "rwkv6_3b": 1e-2}
+# Phase 19's limits sit between the kernel-vs-plain reading and the control
+# that scripts/lm_divergence.py gave at phase 19's float32 depths on an
+# H100 (per token; NVIDIA H100 80GB HBM3, 700 W): 5-9e-6 against controls
+# of 1.4e-2 to 6.9e-2 for the dense configs, pixtral_12b and
+# recurrentgemma_2b, 7.6e-7 against 7.8e-3 for whisper_tiny.  A MoE's
+# router flips at near-ties under float32 differences of ~1e-6, and a
+# flipped expert moves a token's whole FFN output (0.18 and 0.065 per
+# token for the MoE pair with each path on its own router), so its plain
+# path is held on the kernel path's experts, to the dense configs' limit.
+F32_LOGITS_TOL = {"llama3_8b": 1e-4, "rwkv6_3b": 1e-2, "codeqwen15_7b": 1e-4, "granite_3_2b": 1e-4,
+                  "qwen15_110b": 1e-4, "qwen2_moe_a27b": 1e-4, "moonshot_v1_16b_a3b": 1e-4, "pixtral_12b": 1e-4,
+                  "recurrentgemma_2b": 1e-4, "whisper_tiny": 1e-4}
+# Phase 19: per architecture, the decoder depth on the card (None: all of
+# it), the depth of the float32 check (None: the same), the prefill's
+# positions and the flash variant its attention must take.  qwen15_110b's
+# 222 GB of bf16 weights are cut to 8 of 80 layers (2.72 GB a layer) to
+# fit one card; moonshot_v1_16b_a3b's 57.8 GB to 24 of 48, since at 48
+# models.init runs out of an 80 GB H100 (its float32 draw of one stacked
+# expert tensor, 16.5 GiB, beside 68.9 GiB already allocated).  The float32
+# depth keeps float32 weights near 34 GB or below.
+FAMILIES = {
+    "codeqwen15_7b": dict(layers=None, f32_layers=None, seq=LM_SEQ, variant="flash_wgmma"),
+    "granite_3_2b": dict(layers=None, f32_layers=None, seq=LM_SEQ, variant="flash_wgmma"),
+    "qwen15_110b": dict(layers=8, f32_layers=4, seq=LM_SEQ, variant="flash_wgmma"),
+    "qwen2_moe_a27b": dict(layers=None, f32_layers=12, seq=LM_SEQ, variant="flash_wgmma"),
+    "moonshot_v1_16b_a3b": dict(layers=24, f32_layers=12, seq=LM_SEQ, variant="flash_wgmma"),
+    "pixtral_12b": dict(layers=None, f32_layers=24, seq=LM_SEQ, variant="flash_mma"),
+    "recurrentgemma_2b": dict(layers=None, f32_layers=None, seq=LM_SEQ, variant="flash_mma"),
+    "whisper_tiny": dict(layers=None, f32_layers=None, seq=448, variant="flash_wgmma"),
+}
 
 
 def log(*args):
@@ -442,6 +486,8 @@ def lm_kernel_cases(dev):
     # (B, H, Hkv, S, D): every S x D at n_rep 1 and 4, then S=8192 at BH=2
     cases = [(1, 4, 4 // rep, s, d) for s in (1, 37, 128, 300, 2048) for d in (16, 48, 64, 128) for rep in (1, 4)]
     cases += [(1, 2, 2, 8192, 128), (1, 2, 1, 8192, 128)]
+    # pixtral_12b's head dim (H/Hkv = 4) and recurrentgemma_2b's (one KV head)
+    cases += [(1, 8, 2, s, 160) for s in (1, 37, 300, 2048)] + [(1, 10, 1, s, 256) for s in (1, 37, 300, 2048)]
     for dtype in (torch.float32, torch.bfloat16):
         for b, h, hkv, s, d in cases:
             q = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
@@ -453,13 +499,14 @@ def lm_kernel_cases(dev):
                   flash_attention_bshd(q, k, v, use_kernel=False), FLASH_TOL[dtype])
         # strict causality: future keys and values change no earlier output,
         # cut inside a key tile and at a tile boundary
-        q, k, v = (torch.randn(1, 384, 2, 64, generator=g, device=dev).to(dtype) for _ in range(3))
-        o1 = flash_attention_bshd(q, k, v)
-        for cut in (200, 256):
-            k2, v2 = k.clone(), v.clone()
-            k2[:, cut:], v2[:, cut:] = 99.0, -99.0
-            if not torch.equal(o1[:, :cut], flash_attention_bshd(q, k2, v2)[:, :cut]):
-                fail(f"flash_attention {dtype}: outputs depend on future keys")
+        for d in (64, 256):
+            q, k, v = (torch.randn(1, 384, 2, d, generator=g, device=dev).to(dtype) for _ in range(3))
+            o1 = flash_attention_bshd(q, k, v)
+            for cut in (200, 256):
+                k2, v2 = k.clone(), v.clone()
+                k2[:, cut:], v2[:, cut:] = 99.0, -99.0
+                if not torch.equal(o1[:, :cut], flash_attention_bshd(q, k2, v2)[:, :cut]):
+                    fail(f"flash_attention {dtype} D={d}: outputs depend on future keys")
         for t in (1, 33, 64, 2048):
             for n in (16, 64):
                 b, h = 2, 2
@@ -535,26 +582,33 @@ def lm_kernel_cases(dev):
 
 
 # ------------------------------------------------------------- phases 6, 7
-def lm_full_width(arch: str, dev):
-    """One architecture at its published width and depth, random bf16
-    weights: prefill through make_prefill_step, the kernel path's full
-    logits against the plain path's, then launch/serve.main."""
+def lm_full_width(arch: str, dev, layers=None, f32_layers=None, seq: int = LM_SEQ, variant="flash_wgmma"):
+    """One architecture at its published width and depth (or ``layers``
+    deep), random bf16 weights: prefill through make_prefill_step, the
+    kernel path's full logits against the plain path's (in float32 at
+    ``f32_layers`` deep), then launch/serve.main.  Flash must run once per
+    attention layer as ``variant``; the RWKV6 scan once per layer as the
+    split the wrapper picks.  In float32 a MoE's plain path takes the
+    experts that the kernel path's router chose (``moe.routing_tape``)."""
     from repro_torch import kernels, models
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    from repro_torch.launch.specs import make_prefill_step
+    from repro_torch.launch.specs import make_batch, make_prefill_step
+    from repro_torch.models.moe import routing_tape
 
+    t_start = time.perf_counter()
     cfg = get_config(arch)
-    kernel = "flash_attention" if cfg.family == "dense" else "rwkv6_scan"
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    kernel = "rwkv6_scan" if cfg.family == "ssm" else "flash_attention"
+    n_kernel = cfg.n_layers if cfg.family in ("ssm", "audio") else cfg.layer_kinds().count("attn")
     t0 = time.perf_counter()
     params = models.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     weights_gb = sum(p.numel() * p.element_size() for p in params.values()) / 1e9
-    rec = dict(arch=arch, kernel=kernel, weights_gb=weights_gb, init_s=time.perf_counter() - t0,
-               batch=LM_BATCH, seq=LM_SEQ)
-    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ), generator=torch.Generator(device=dev).manual_seed(1),
-                           device=dev)
-    batch = {"tokens": tokens}
+    rec = dict(arch=arch, kernel=kernel, layers=cfg.n_layers, weights_gb=weights_gb, init_s=time.perf_counter() - t0,
+               batch=LM_BATCH, seq=seq)
+    batch = make_batch(cfg, LM_BATCH, seq, torch.Generator(device=dev).manual_seed(1), dev)
     prefill = make_prefill_step(cfg)
     prefill(params, batch)  # warm-up: cuBLAS handles, kernel library load
     torch.cuda.synchronize()
@@ -566,20 +620,19 @@ def lm_full_width(arch: str, dev):
     rec["prefill_s"] = time.perf_counter() - t0
     rec["launches"] = dict(kernels.LAUNCHES)
     rec["variant_launches"] = dict(kernels.VARIANT_LAUNCHES[kernel])
-    rec["prefill_tok_s"] = LM_BATCH * LM_SEQ / rec["prefill_s"]
+    rec["prefill_tok_s"] = LM_BATCH * seq / rec["prefill_s"]
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    if rec["launches"][kernel] != cfg.n_layers:
-        fail(f"{arch} prefill launched {kernel} {rec['launches'][kernel]} times, not once per layer ({cfg.n_layers})")
-    if kernel == "flash_attention" and rec["variant_launches"]["flash_wgmma"] != cfg.n_layers:
-        fail(f"{arch} prefill ran flash attention as {rec['variant_launches']}, not flash_wgmma in every layer")
+    if rec["launches"][kernel] != n_kernel:
+        fail(f"{arch} prefill launched {kernel} {rec['launches'][kernel]} times, not once per layer ({n_kernel})")
+    if kernel == "flash_attention" and rec["variant_launches"][variant] != n_kernel:
+        fail(f"{arch} prefill ran flash attention as {rec['variant_launches']}, not {variant} in every attention layer")
     if kernel == "rwkv6_scan":
-        from repro_torch.kernels.rwkv6_scan.ops import variant
+        from repro_torch.kernels.rwkv6_scan.ops import variant as scan_variant
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        rec["scan_variant"] = variant(cfg.rwkv_head_dim, LM_BATCH * cfg.n_heads, sms)
-        if rec["variant_launches"][rec["scan_variant"]] != cfg.n_layers:
-            fail(f"{arch} prefill ran the scan as {rec['variant_launches']}, not {rec['scan_variant']} in every layer")
-        log(f"  {arch} prefill: the scan ran {rec['variant_launches'][rec['scan_variant']]} of {cfg.n_layers} layers "
-            f"as {rec['scan_variant']}")
+        variant = rec["scan_variant"] = scan_variant(cfg.rwkv_head_dim, LM_BATCH * cfg.n_heads, sms)
+        if rec["variant_launches"][variant] != n_kernel:
+            fail(f"{arch} prefill ran the scan as {rec['variant_launches']}, not {variant} in every layer")
+    log(f"  {arch} prefill: {kernel} ran {rec['variant_launches'][variant]} of {n_kernel} times as {variant}")
     if tuple(nxt.shape) != (LM_BATCH, cfg.vocab_size) or not bool(torch.isfinite(nxt).all()):
         fail(f"{arch} prefill: next-token logits {tuple(nxt.shape)}, finite={bool(torch.isfinite(nxt).all())}")
     del nxt
@@ -601,12 +654,26 @@ def lm_full_width(arch: str, dev):
     rec["argmax_agree"] = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     rec["logits_finite"] = bool(torch.isfinite(got).all())
     del got
-    params = {k: v.float() for k, v in params.items()}
+    if f32_layers and f32_layers != cfg.n_layers:  # float32 weights of every layer would not fit
+        del params, want
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cfg, n_layers=f32_layers)
+        params = models.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        want = models.forward(cfg, params, batch, use_kernel=False)[..., : cfg.vocab_size]
+    rec["f32_layers"] = cfg.n_layers
+    for k in list(params):  # in place, one tensor at a time
+        params[k] = params[k].float()
     torch.cuda.empty_cache()
-    got = models.forward(cfg, params, batch)[..., : cfg.vocab_size]
+    with routing_tape() as tape:
+        got = models.forward(cfg, params, batch)[..., : cfg.vocab_size]
     want32 = models.forward(cfg, params, batch, use_kernel=False)[..., : cfg.vocab_size]
-    rec["f32_logits_row_rel_err"] = logits_row_dist(got, want32)
     rec["bf16_vs_f32_row_rel_err"] = logits_row_dist(want, want32)  # the control
+    if tape:  # MoE: the plain path held on the experts the kernel path chose
+        rec["f32_free_routing_row_rel_err"] = logits_row_dist(got, want32)  # reported
+        del want32
+        with routing_tape(replay=tape):
+            want32 = models.forward(cfg, params, batch, use_kernel=False)[..., : cfg.vocab_size]
+    rec["f32_logits_row_rel_err"] = logits_row_dist(got, want32)
     del got, want, want32, params
     torch.cuda.empty_cache()
 
@@ -614,8 +681,9 @@ def lm_full_width(arch: str, dev):
     buf = io.StringIO()
     kernels.reset_launches()
     t0 = time.perf_counter()
+    argv = ["--arch", arch, "--batch", str(LM_BATCH), "--prompt-len", "16", "--gen-len", "32"]
     with contextlib.redirect_stdout(buf):
-        gen = serve.main(["--arch", arch, "--batch", str(LM_BATCH), "--prompt-len", "16", "--gen-len", "32"])
+        gen = serve.main(argv + (["--layers", str(layers)] if layers else []))
     rec["serve_s"] = time.perf_counter() - t0
     out = buf.getvalue()
     found = re.search(r"steps in ([0-9.]+)s \(([0-9.]+) tok/s decode\); first step ([0-9.]+)s, then ([0-9.]+) tok/s", out)
@@ -628,6 +696,7 @@ def lm_full_width(arch: str, dev):
         fail(f"{arch} serve.main returned {tuple(gen.shape)} tokens; output {out!r}")
     del gen
     torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t_start
     log(f"  {arch} " + json.dumps(rec))
     if not rec["logits_finite"]:
         fail(f"{arch} bf16 logits of the kernel path are not finite")
@@ -646,21 +715,31 @@ def logits_row_dist(a, b) -> float:
 # ----------------------------------------------------------------- phase 8
 def decode_vs_prefill(dev):
     """Cached decode reproduces the kernel path's teacher-forced logits at
-    smoke size in f32, to the reference's 2e-3 (tests/test_models.py)."""
+    smoke size in f32, to the reference's 2e-3 (tests/test_models.py), for
+    every architecture (a VLM's decode runs on text alone, as the
+    reference's; Whisper's after priming its cross cache).  Then one
+    int8-KV-cache decode on the card against the same decode on the CPU."""
     from repro_torch import models
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models.whisper import whisper_prime_cache
 
     worst = {}
-    for arch in ("llama3_8b", "rwkv6_3b"):
+    s = 40
+    for arch in ARCH_IDS:
         cfg = get_config(arch).smoke()
         params = models.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-        s = 40
-        tok = torch.randint(0, cfg.vocab_size, (2, s), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
-        full = models.forward(cfg, params, {"tokens": tok})
+        g = torch.Generator(device=dev).manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, s), generator=g, device=dev)}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros(2, 0, cfg.d_model, device=dev)
         cache = models.init_cache(cfg, 2, s, dev)
+        if cfg.family == "audio":
+            batch["enc_embeds"] = torch.randn(2, cfg.enc_seq_len, cfg.d_model, generator=g, device=dev)
+            cache = whisper_prime_cache(cfg, params, cache, batch["enc_embeds"])
+        full = models.forward(cfg, params, batch)
         dec = []
         for t in range(s):
-            logits, cache = models.decode_step(cfg, params, cache, tok[:, t], t)
+            logits, cache = models.decode_step(cfg, params, cache, batch["tokens"][:, t], t)
             dec.append(logits)
         dec = torch.stack(dec, 1)
         bad = (dec - full).abs() > 2e-3 + 2e-3 * full.abs()
@@ -668,6 +747,28 @@ def decode_vs_prefill(dev):
         log(f"  {arch} smoke f32: decode vs prefill max abs diff {worst[arch]:.2e}")
         if bool(bad.any()):
             fail(f"{arch}: decode differs from prefill beyond rtol/atol 2e-3")
+    # the int8 KV cache: the same weights and tokens decoded on the card and
+    # on the CPU; logits to the decode bound 2e-3 (a value that rounds to the
+    # other int8 neighbour on one device moves its logit by one step of 1/127
+    # of its row's absmax), and the share of int8 entries that differ
+    cfg = dataclasses.replace(get_config("llama3_8b").smoke(), kv_cache_dtype="int8")
+    params = models.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (2, s), generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for where in ("cpu", dev):
+        p = {k: v.to(where) for k, v in params.items()}
+        cache = models.init_cache(cfg, 2, s, where)
+        out = [models.decode_step(cfg, p, cache, tok[:, t].to(where), t)[0] for t in range(s)]
+        runs[str(where)] = (torch.stack(out, 1).cpu(), {k: v.cpu() for k, v in cache.items()})
+    (cpu_l, cpu_c), (card_l, card_c) = runs["cpu"], runs[str(dev)]
+    worst["int8_card_vs_cpu"] = (card_l - cpu_l).abs().max().item()
+    int8_keys = [k for k, v in cpu_c.items() if v.dtype == torch.int8]
+    worst["int8_entries_differing"] = sum(int((card_c[k] != cpu_c[k]).sum()) for k in int8_keys) / sum(
+        cpu_c[k].numel() for k in int8_keys)
+    log(f"  llama3_8b smoke int8 cache: card vs CPU logits max abs diff {worst['int8_card_vs_cpu']:.2e}, int8 "
+        f"entries differing {worst['int8_entries_differing']:.2e}")
+    if not bool(((card_l - cpu_l).abs() <= 2e-3 + 2e-3 * cpu_l.abs()).all()):
+        fail("int8 KV-cache decode on the card differs from the CPU's beyond rtol/atol 2e-3")
     return worst
 
 
@@ -677,49 +778,82 @@ def lm_kernel_timings(dev):
     against its plain version; flash also against PyTorch's
     scaled_dot_product_attention (the yardstick only: the port never calls
     it).  Bounds from this run's shapes and the H100 SXM data sheet."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
-    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
+    from repro_torch.configs import get_config
 
     g = torch.Generator(device=dev).manual_seed(3)
     rows = {}
-    # flash: llama3_8b's attention at B=4, S=2048: 32 query heads, 8 KV heads, D=128, bf16
-    b, s, h, hkv, d = LM_BATCH, LM_SEQ, 32, 8, 128
-    q = torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16)
-    k = torch.randn(b, s, hkv, d, generator=g, device=dev).to(torch.bfloat16)
-    v = torch.randn(b, s, hkv, d, generator=g, device=dev).to(torch.bfloat16)
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
-    fns = dict(ms=lambda: flash_attention_bshd(q, k, v), plain_ms=lambda: flash_attention_bshd(q, k, v, use_kernel=False),
-               library_ms=sdpa)
-    got, want = fns["ms"](), fns["plain_ms"]()
-    err = rel_err(got, want)[0]
-    rel = row_rel_err(got, want)
-    lib_err = row_rel_err(sdpa().transpose(1, 2), want)
-    controls = flash_controls(q, k, v, want)
-    del got, want
-    tol = FLASH_TOL[torch.bfloat16]
-    log(f"  flash bf16 per-row rel err {rel:.3e}, limit {tol}, planted-fault controls "
-        + ", ".join(f"{name} {c:.3e}" for name, c in controls.items()))
-    if not min(controls.values()) > tol:
-        fail(f"flash bf16 limit {tol} does not reject every planted fault: {controls}")
-    ops = 4.0 * d * b * h * s * (s + 1) / 2  # q k^T and p v over the causal pairs
-    nbytes = 2.0 * (2 * b * s * h * d + 2 * b * s * hkv * d)  # q, o and k, v in bf16
-    rows["flash_attention"] = dict(shape=dict(B=b, S=s, H=h, Hkv=hkv, D=d, dtype="bfloat16"), max_abs_err=err, rel_err=rel,
-                                   library_rel_err=lib_err, fault_controls=controls, ops=ops, bytes=nbytes,
-                                   **timed(fns, dict(ms=20, plain_ms=3, library_ms=20)),
-                                   **bound(ops, 989e12, nbytes))
-    del q, k, v
+    # flash: llama3_8b's attention at B=4, S=2048: 32 query heads, 8 KV
+    # heads, D=128, bf16 (flash_wgmma; with the planted-fault controls);
+    # then the attention of every phase 19 family at its prefill's S, heads
+    # and head dim, as the variant FAMILIES names (flash_mma at pixtral_12b's
+    # D=160 and recurrentgemma_2b's D=256); families of one shape share a row
+    rows["flash_attention"] = flash_timing(dev, g, LM_BATCH, LM_SEQ, 32, 8, 128, controls=True)
+    by_shape = {}
+    for arch, spec in FAMILIES.items():
+        cfg = get_config(arch)
+        shape = (spec["seq"], cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+        if shape in by_shape:
+            rows[by_shape[shape]]["archs"].append(arch)
+            continue
+        by_shape[shape] = key = f"flash_{arch}"
+        rows[key] = row = dict(archs=[arch], **flash_timing(dev, g, LM_BATCH, *shape, controls=False))
+        if row["variant"] != spec["variant"]:
+            fail(f"flash at {arch}'s attention {shape} launched {row['variant']}, not {spec['variant']}")
+    # what D=160 costs on the DMAX=256 instantiation: flash_mma forced at
+    # llama3_8b's D=128 (its own DMAX=128 instantiation), ms per operation
+    rows["flash_mma_d128"] = row = flash_timing(dev, g, LM_BATCH, LM_SEQ, 32, 8, 128, controls=False, kind="flash_mma")
+    pix = rows["flash_pixtral_12b"]
+    row["pixtral_ms_per_op_ratio"] = (pix["ms"] / pix["ops"]) / (row["ms"] / row["ops"])
     # scan: rwkv6_3b's time-mix at T=2048, 40 heads of 64, r/k/v bf16, at
     # B=4 (the prefill's, in the kernels line) and B=1 (one request)
     for b, key in ((LM_BATCH, "rwkv6_scan"), (1, "rwkv6_scan_b1")):
         rows[key] = scan_timing(dev, g, b)
     for name, row in rows.items():
         log(f"  timing {name} " + json.dumps(row))
-        if not row["rel_err"] <= (FLASH_TOL[torch.bfloat16] if name == "flash_attention" else SCAN_TOL[torch.float32]):
+        if not row["rel_err"] <= (FLASH_TOL[torch.bfloat16] if name.startswith("flash") else SCAN_TOL[torch.float32]):
             fail(f"{name} at the prefill's shape: kernel vs plain rel err {row['rel_err']:.3e}")
         if "state_rel_err" in row and not row["state_rel_err"] <= SCAN_TOL[torch.float32]:
             fail(f"{name} at the prefill's shape: final state vs plain rel err {row['state_rel_err']:.3e}")
     return rows
+
+
+def flash_timing(dev, g, b: int, s: int, h: int, hkv: int, d: int, controls: bool, kind=None) -> dict:
+    """Flash at [B, S, H, D] with Hkv KV heads in bf16, as the variant the
+    wrapper picks (or ``kind``), against its plain version and
+    scaled_dot_product_attention, with its bound; with ``controls``, the
+    planted-fault plain versions must read above the limit."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd, variant
+
+    q = torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(b, s, hkv, d, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(b, s, hkv, d, generator=g, device=dev).to(torch.bfloat16)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
+    kind = kind or variant(torch.bfloat16, d)
+    fns = dict(ms=lambda: flash_attention_bshd(q, k, v, kind=kind),
+               plain_ms=lambda: flash_attention_bshd(q, k, v, use_kernel=False), library_ms=sdpa)
+    before = kernels.VARIANT_LAUNCHES["flash_attention"][kind]
+    got, want = fns["ms"](), fns["plain_ms"]()
+    if kernels.VARIANT_LAUNCHES["flash_attention"][kind] != before + 1:
+        fail(f"flash at D={d} did not launch {kind}")
+    err = rel_err(got, want)[0]
+    rel = row_rel_err(got, want)
+    lib_err = row_rel_err(sdpa().transpose(1, 2), want)
+    row = dict(shape=dict(B=b, S=s, H=h, Hkv=hkv, D=d, dtype="bfloat16"), variant=kind, max_abs_err=err, rel_err=rel,
+               library_rel_err=lib_err)
+    tol = FLASH_TOL[torch.bfloat16]
+    if controls:
+        row["fault_controls"] = faults = flash_controls(q, k, v, want)
+        log(f"  flash bf16 per-row rel err {rel:.3e}, limit {tol}, planted-fault controls "
+            + ", ".join(f"{name} {c:.3e}" for name, c in faults.items()))
+        if not min(faults.values()) > tol:
+            fail(f"flash bf16 limit {tol} does not reject every planted fault: {faults}")
+    del got, want
+    ops = 4.0 * d * b * h * s * (s + 1) / 2  # q k^T and p v over the causal pairs
+    nbytes = 2.0 * (2 * b * s * h * d + 2 * b * s * hkv * d)  # q, o and k, v in bf16
+    row.update(ops=ops, bytes=nbytes, **timed(fns, dict(ms=20, plain_ms=3, library_ms=20)), **bound(ops, 989e12, nbytes))
+    return row
 
 
 def scan_timing(dev, g, b: int) -> dict:
@@ -1522,10 +1656,19 @@ def main():
         libs = list(pool.map(build, sources))
     record["build_s"] = time.perf_counter() - t0
     log(f"phase 2: built {', '.join(src.name for src in sources)} in parallel in {record['build_s']:.1f} s")
-    for lib in libs:
+    record["ptxas"] = ptxas = {}
+    for lib in libs:  # each kernel instantiation's registers and spills, by its name in the mangled symbol
+        entry = None
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line):
-                log("  " + line.strip())
+            found = re.search(r"Compiling entry function '\w*?\d(flash_simple|flash_mma|flash_wgmma|tiled_dmma|tiled_fma|"
+                              r"skinny|second_pass|rwkv6_chunk_kernel|rwkv6_state_kernel)(?:I(\w*?)E+v)?", line)
+            if found:
+                targs = re.sub(r"Li(\d+)E?", r",\1", found.group(2) or "").replace("13__nv_bfloat16", "bf16").strip(",")
+                entry = found.group(1) + (f"<{targs}>" if targs else "")
+            elif entry and ("spill" in line or "Used" in line):
+                ptxas[entry] = (ptxas.get(entry, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    for entry, info in ptxas.items():
+        log(f"  ptxas {entry}: {info}")
     worst = kernel_cases(dev)
     record["kernel_cases_rel_err"] = {str(k)[6:]: v for k, v in worst.items()}
     record["dense_f64"] = dmma_rate(dev)
@@ -1644,7 +1787,16 @@ def main():
         f"serve CLI with --warmup and --plan-store")
     record["plan_store"] = store_rec = plan_store_path()
 
-    # ---- phase 19: summary
+    # ---- phase 19: the other LM families
+    record["families"] = {}
+    for arch, spec in FAMILIES.items():
+        log(f"phase 19: {arch} at full width ({spec['layers'] or 'all'} layers), prefill B={LM_BATCH} x S={spec['seq']}"
+            f", float32 at {spec['f32_layers'] or 'the same depth'}, then serve.main")
+        record["families"][arch] = lm_full_width(arch, dev, **spec)
+    families = record["families"]
+    record["families_s"] = sum(r["wall_s"] for r in families.values())
+
+    # ---- phase 20: summary
     total = lambda k: sum(r[k] for r in mid)
     bound_ops = sum(r["bound_ms"] for r in mid if r["bound_by"] == "operations")
     bucket = planned["largest_bucket"]
@@ -1677,17 +1829,30 @@ def main():
                       ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")})
                   for w in spmd_rec["worlds"]}},
     )]
+    flash_runs = {"llama3_8b": record["lm"]["llama3_8b"], **families}
+    family_rows = [r for r in timing.values() if "archs" in r]
+    flash_variants = {v: sum(r["variant_launches"][v] for r in flash_runs.values())
+                      for v in record["lm"]["llama3_8b"]["variant_launches"]}
     for name, arch, replaces in (
         ("flash_attention", "llama3_8b", "src/repro/kernels/flash_attention/kernel.py:70"),
         ("rwkv6_scan", "rwkv6_3b", "src/repro/kernels/rwkv6_scan/kernel.py:71"),
     ):
         row = timing[name]
-        entries.append(dict(
+        entry = dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/{name}/{name}.cu", replaces=replaces,
             launches=record["lm"][arch]["launches"][name], max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             variants=record["lm"][arch]["variant_launches"],
-        ))
+        )
+        if name == "flash_attention":  # summed over llama3_8b's prefill and phase 19's
+            entry.update(
+                launches=sum(r["launches"][name] for r in flash_runs.values()), variants=flash_variants,
+                paths={**{f"{a} prefill": dict(launches=r["variant_launches"]) for a, r in flash_runs.items()},
+                       **{f"{', '.join(r['archs'])} attention (ms etc.)": {
+                           k: r[k] for k in ("shape", "variant", "ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "max_abs_err")}
+                          for r in family_rows}})
+        entries.append(entry)
     record["kernels"] = entries
     record["total_s"] = time.perf_counter() - t_start
     out = Path(args.out)
@@ -1705,6 +1870,21 @@ def main():
             f"{rec['argmax_agree']:.4f}; f32 logits per token {rec['f32_logits_row_rel_err']:.2e} (control "
             f"{rec['bf16_vs_f32_row_rel_err']:.2e}); decode {rec['decode_tok_s']} tok/s after the first step "
             f"({rec['decode_first_step_s']} s)")
+    for arch, rec in families.items():
+        log(f"{arch} ({rec['layers']} layers): prefill {rec['prefill_s']:.3f} s ({rec['prefill_tok_s']:.0f} tok/s), flash "
+            f"{rec['variant_launches']}, peak {rec['peak_gib']:.2f} GiB, bf16 logits per token "
+            f"{rec['logits_row_rel_err']:.2e}, argmax agree {rec['argmax_agree']:.4f}; f32 ({rec['f32_layers']} layers) "
+            f"{rec['f32_logits_row_rel_err']:.2e} (control {rec['bf16_vs_f32_row_rel_err']:.2e}, limit "
+            f"{F32_LOGITS_TOL[arch]}" + (f"; each path on its own router {rec['f32_free_routing_row_rel_err']:.2e}"
+                                         if "f32_free_routing_row_rel_err" in rec else "")
+            + f"); decode {rec['decode_tok_s']} tok/s")
+    for r in family_rows:
+        log(f"flash at {', '.join(r['archs'])} ({r['variant']}, {r['shape']}): {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, sdpa {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"by {r['bound_by']}), per-row rel err {r['rel_err']:.2e}")
+    log(f"phase 19: {record['families_s']:.1f} s")
+    r = timing["flash_mma_d128"]
+    log(f"flash_mma at D=128: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}); pixtral's D=160 on DMAX=256 takes "
+        f"{r['pixtral_ms_per_op_ratio']:.2f}x its time per operation")
     small, sw = planned["small"], planned["sweeps"]
     log(f"planned pipeline: 3x2 |dE_ED|={abs(small['energy'] - small['e_ed']):.2e}; 8x4 {planned['wall_s']:.1f} s "
         f"(csr {record['full_size']['wall_s']:.1f} s), sweeps {[round(r['seconds'], 2) for r in sw]} s, SVD "

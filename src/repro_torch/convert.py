@@ -75,21 +75,34 @@ def _lm_arrays(arrays: Dict[str, np.ndarray], cfg, want: Dict[str, Tuple[int, ..
 
 def lm_params_from_numpy(params: Dict[str, np.ndarray], cfg, device=None) -> Dict[str, torch.Tensor]:
     """LM parameters from the reference's flat dict of arrays (``np.asarray``
-    of each leaf, the layers stacked under ``blocks/`` with a leading
-    ``n_layers`` axis), on ``device`` (``None`` means the CUDA card).  The
-    port keeps the same keys, shapes and dtypes."""
-    from .models.lm import init_lm
+    of each leaf), on ``device`` (``None`` means the CUDA card), for every
+    architecture: the pattern positions stacked under ``blocks/L{i}/``,
+    the remainder layers under ``rem{j}/``, Whisper's stacks under
+    ``enc/`` and ``dec/``.  The port keeps the same keys, shapes and
+    dtypes."""
+    from . import models
 
-    shapes = {k: tuple(v.shape) for k, v in init_lm(cfg, None, torch.device("meta")).items()}
+    shapes = {k: tuple(v.shape) for k, v in models.init(cfg, None, "meta").items()}
     return _lm_arrays(params, cfg, shapes, "params", device)
 
 
 def convert_cache(cache: Dict[str, np.ndarray], cfg, device=None) -> Dict[str, torch.Tensor]:
     """A decode cache from the reference's flat dict of arrays, so that a
-    decode can resume from the reference's state."""
-    from .models.lm import init_decode_cache
+    decode can resume from the reference's state: KV caches (a ring of
+    ``local_window`` slots for a windowed layer, int8 values with their
+    float32 scales), RG-LRU ``h``/``conv`` and RWKV6 states, stacked
+    (``blocks/L{i}/``) or not (``rem{j}/``), and Whisper's self and cross
+    caches."""
+    from . import models
 
-    batch = np.shape(next(iter(cache.values())))[1]  # every entry is [n_layers, batch, ...]
-    cache_len = np.shape(cache["blocks/L0/k"])[2] if "blocks/L0/k" in cache else 0
-    meta = init_decode_cache(cfg, batch, cache_len, torch.device("meta"))
+    def lead(key):  # stacked entries carry a leading layer axis before the batch
+        return 1 if key.startswith("blocks/") or cfg.family == "audio" else 0
+
+    key = next(iter(cache))
+    batch = np.shape(cache[key])[lead(key)]
+    # a KV entry's slots (any cache_len at or past a ring's window gives the
+    # same ring); a cache of recurrent state alone has none
+    kv = [k for k in cache if k == "self_k" or k.endswith("/k")]
+    cache_len = np.shape(cache[kv[0]])[lead(kv[0]) + 1] if kv else 0
+    meta = models.init_cache(cfg, batch, cache_len, "meta")
     return _lm_arrays(cache, cfg, {k: tuple(v.shape) for k, v in meta.items()}, "cache", device)

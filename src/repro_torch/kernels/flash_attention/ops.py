@@ -21,7 +21,7 @@ from .ref import flash_attention_ref
 SOURCE = Path(__file__).with_name("flash_attention.cu")
 _DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2}
 MAX_HEAD_DIM = 256
-_VARIANT_CODE = {"flash_simple": 0, "flash_mma": 1, "flash_wgmma": 2}
+VARIANTS = ("flash_simple", "flash_mma", "flash_wgmma")  # the launcher's variant codes 0, 1, 2
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -45,19 +45,23 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention_bshd(q, k, v, *, use_kernel: bool = True) -> torch.Tensor:
+def flash_attention_bshd(q, k, v, *, use_kernel: bool = True, kind: str | None = None) -> torch.Tensor:
     """Causal attention. q: [B,S,H,D]; k,v: [B,S,Hkv,D] with H % Hkv == 0
     (query head h reads KV head h // (H // Hkv)); -> [B,S,H,D] in q's
-    dtype, with scale 1/sqrt(D)."""
+    dtype, with scale 1/sqrt(D).  ``kind`` forces one of ``VARIANTS`` in
+    place of ``variant(dtype, D)``'s choice (to time one variant against
+    another); the launcher refuses a variant that cannot take the shape."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"need q [B,S,H,D] and k, v [B,S,Hkv,D]; got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, d = q.shape
     hkv = k.shape[2]
     if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d or h % hkv != 0:
         raise ValueError(f"k, v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if kind is not None and kind not in VARIANTS:
+        raise ValueError(f"kind must be one of {VARIANTS}, got {kind!r}")
     if not use_kernel or q.device.type == "cpu":
         return _plain(q, k, v)
-    return _launch(q, k, v)
+    return _launch(q, k, v, kind)
 
 
 def _plain(q, k, v):
@@ -70,7 +74,7 @@ def _plain(q, k, v):
     return o.reshape(b, h, s, d).transpose(1, 2)
 
 
-def _launch(q, k, v) -> torch.Tensor:
+def _launch(q, k, v, kind=None) -> torch.Tensor:
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device, got {dev}, {k.device}, {v.device}")
@@ -81,7 +85,7 @@ def _launch(q, k, v) -> torch.Tensor:
     b, s, h, d = q.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
-    kind = variant(q.dtype, d)
+    kind = kind or variant(q.dtype, d)
     if kind == "flash_wgmma" and any(a.data_ptr() % 16 for a in (q, k, v)):
         raise ValueError("flash_wgmma reads q, k, v through TMA and needs them 16-byte aligned")
     out = torch.empty_like(q)
@@ -89,7 +93,7 @@ def _launch(q, k, v) -> torch.Tensor:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().flash_attention_launch(
-        _DTYPE_CODE[q.dtype], _VARIANT_CODE[kind], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[q.dtype], VARIANTS.index(kind), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, s, h, k.shape[2], d, 1.0 / d**0.5, stream,
     )
     if err != 0:

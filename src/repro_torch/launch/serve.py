@@ -6,12 +6,15 @@
 Feeds each request's prompt tokens through the one-token decode step
 (filling the KV or recurrent cache), then greedy-decodes ``gen-len``
 tokens.  Weights are random, drawn from ``--seed``; prompts are drawn from a
-``torch.Generator`` seeded with ``--seed + 1``.  ``--device`` defaults to
-the CUDA card.
+``torch.Generator`` seeded with ``--seed + 1``; Whisper's cross-attention
+cache is primed first from frame embeddings drawn with ``--seed + 2``.
+``--layers`` cuts the depth (for a model whose weights do not fit the
+card).  ``--device`` defaults to the CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -30,6 +33,7 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None, help="decoder layers (default: the config's)")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
@@ -37,8 +41,16 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = models.init(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     cache = models.init_cache(cfg, args.batch, args.prompt_len + args.gen_len, dev)
+    if cfg.family == "audio":
+        from ..models.whisper import whisper_prime_cache
+
+        frames = torch.Generator(device=dev).manual_seed(args.seed + 2)
+        enc = torch.randn(args.batch, cfg.enc_seq_len, cfg.d_model, generator=frames, device=dev)
+        cache = whisper_prime_cache(cfg, params, cache, enc)
     step = make_decode_step(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen, device=dev)

@@ -1,12 +1,18 @@
-"""Attention of the dense family: causal GQA for prefill, and one-token
-decode against a KV cache.
+"""Attention blocks: causal GQA for prefill, sliding-window local attention
+(RecurrentGemma), cross-attention (Whisper), and one-token decode against a
+KV cache.
 
 ``causal_attention`` goes through the flash-attention kernel on the card
 at every length; the reference switches to query-chunked jnp attention at
-8192 tokens and above, which computes the same function.  Decode keeps the
-cache at ``n_kv_heads`` and uses the grouped form (the logits are tiny at
-one query), in plain PyTorch.  Windowed (RecurrentGemma) and cross
-(Whisper) attention are ROADMAP Queue 1 #13.
+8192 tokens and above, which computes the same function.  With a local
+window W the reference's own rule picks the form: at S <= W the band mask
+is vacuous, so it is causal attention and takes the kernel; at
+W < S <= 2W the banded masked softmax and beyond 2W the block-local form,
+both plain PyTorch, as the reference computes them in jnp (its TPU kernel
+is causal only).  Cross attention and Whisper's non-causal encoder
+self-attention are plain for the same reason.  Decode keeps the cache at
+``n_kv_heads`` and uses the grouped form (the logits are tiny at one
+query), in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -18,21 +24,85 @@ from ..kernels.flash_attention.ops import flash_attention_bshd
 NEG_INF = -2.0**30
 
 
+def _expand_kv(k, n_heads: int):
+    """[B,S,Hkv,D] -> [B,S,H,D]: query head h reads KV head h // (H / Hkv)."""
+    hkv = k.shape[2]
+    return k if hkv == n_heads else k.repeat_interleave(n_heads // hkv, dim=2)
+
+
 def causal_attention(q, k, v, *, local_window: int = 0, use_kernel: bool = True):
-    """q: [B,S,H,D]; k,v: [B,S,Hkv,D]. Returns [B,S,H,D]."""
-    if local_window:
-        raise NotImplementedError("windowed attention is not ported yet (ROADMAP Queue 1 #13)")
+    """q: [B,S,H,D]; k,v: [B,S,Hkv,D]. Returns [B,S,H,D].  With
+    ``local_window`` > 0 the mask is banded (sliding window)."""
+    s = q.shape[1]
+    if local_window and s > 2 * local_window:
+        return _windowed_attention(q, k, v, local_window)
+    if local_window and s > local_window:
+        return _banded_attention(q, k, v, local_window)
     return flash_attention_bshd(q, k, v, use_kernel=use_kernel)
 
 
-def decode_attention(q1, k_cache, v_cache, pos):
+def _banded_attention(q, k, v, window: int):
+    """Causal attention with the sliding-window band, one masked softmax
+    over the whole key axis (the reference's path for W < S <= 2W)."""
+    b, s, h, d = q.shape
+    k, v = _expand_kv(k, h), _expand_kv(v, h)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / np.sqrt(d))
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _windowed_attention(q, k, v, window: int):
+    """Block-local sliding-window attention: each query block of size W
+    attends to its own and the previous key block => O(S*2W*D)."""
+    b, s, h, d = q.shape
+    w = window
+    nb = (s + w - 1) // w
+    pad = nb * w - s
+    k, v = _expand_kv(k, h), _expand_kv(v, h)
+    if pad:
+        padding = (0, 0, 0, 0, 0, pad)
+        q, k, v = (torch.nn.functional.pad(a, padding) for a in (q, k, v))
+    qb = q.reshape(b, nb, w, h, d)
+    kb = k.reshape(b, nb, w, h, d)
+    vb = v.reshape(b, nb, w, h, d)
+    k2 = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1), kb], dim=2)  # [B,nb,2w,h,d]
+    v2 = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1), vb], dim=2)
+    logits = torch.einsum("bnqhd,bnkhd->bnhqk", qb, k2).float() * (1.0 / np.sqrt(d))
+    qpos = torch.arange(w, device=q.device)[:, None] + w  # position on the 2w key axis
+    kpos = torch.arange(2 * w, device=q.device)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - w)
+    first_block = torch.arange(nb, device=q.device)[:, None, None] == 0
+    valid = mask[None] & ~(first_block & (kpos[None] < w))  # [nb, w, 2w]
+    logits = torch.where(valid[None, :, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bnhqk,bnkhd->bnqhd", probs, v2).reshape(b, nb * w, h, d)
+    return out[:, :s]
+
+
+def cross_attention(q, k, v):
+    """q: [B,Sq,H,D]; k,v: [B,Sk,Hkv,D]; full (non-causal) attention."""
+    h, d = q.shape[2], q.shape[3]
+    k, v = _expand_kv(k, h), _expand_kv(v, h)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / np.sqrt(d)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def decode_attention(q1, k_cache, v_cache, pos, *, local_window: int = 0):
     """One-token decode: q1 [B,1,H,D], caches [B,S,Hkv,D]; attends to cache
-    positions <= pos.  Grouped form: logits are [B,Hkv,rep,1,S]."""
+    positions <= pos (banded if local).  Grouped form: logits are
+    [B,Hkv,rep,1,S]."""
     b, s, hkv, d = k_cache.shape
     h = q1.shape[2]
     qg = q1.reshape(b, 1, hkv, h // hkv, d)
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qg, k_cache).float() / np.sqrt(d)
-    mask = torch.arange(s, device=q1.device) <= pos
+    kpos = torch.arange(s, device=q1.device)
+    mask = kpos <= pos
+    if local_window:
+        mask = mask & (kpos > pos - local_window)
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q1.dtype)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v_cache)

@@ -1,9 +1,11 @@
 """Shared LM building blocks, as plain functions on tensors.
 
 Parameters live in flat dicts keyed by slash paths ("blocks/L0/attn/wq"),
-laid out as the reference keeps them: layer parameters are stacked along a
-leading ``n_layers`` axis under ``blocks/``, so the reference's parameters
-cross over array for array (``repro_torch.convert``).  The reference's mesh
+laid out as the reference keeps them: the parameters of each position of
+the layer pattern are stacked along a leading axis of pattern blocks under
+``blocks/L{i}/`` (remainder layers unstacked under ``rem{j}/``; Whisper's
+under ``enc/`` and ``dec/``), so the reference's parameters cross over
+array for array (``repro_torch.convert``).  The reference's mesh
 hints (``shard_hint``, ``act_hint``, ``batch_axes``) have no meaning on one
 card and have no counterpart here.
 """
@@ -85,6 +87,24 @@ def rope(x, positions, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def sinusoidal_positions(seq_len: int, d_model: int) -> torch.Tensor:
+    """[seq_len, d_model] float32: sines then cosines, computed in float64
+    as the reference does and rounded once."""
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d_model)
+    return torch.from_numpy(np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32))
+
+
+def gelu(x):
+    """GELU in its tanh form, the reference's default."""
+    return F.gelu(x, approximate="tanh")
+
+
 def swiglu(x, w_gate, w_up, w_down):
     """SwiGLU MLP: down( silu(x@gate) * (x@up) )."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x, w1, b1, w2, b2):
+    return gelu(x @ w1 + b1) @ w2 + b2

@@ -6,6 +6,7 @@ that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import math
 import threading
 
@@ -474,6 +475,138 @@ def test_lm_decode_on_card_matches_forward(card, arch):
         logits, cache = models.decode_step(cfg, params, cache, tok[:, t], t)
         dec.append(logits)
     torch.testing.assert_close(torch.stack(dec, 1), full, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("s", [1, 63, 200, 2048])
+@pytest.mark.parametrize("h,hkv,d", [(8, 2, 160), (10, 1, 256)])
+def test_flash_mma_matches_plain_at_wide_heads(card, s, h, hkv, d):
+    """flash_mma at pixtral_12b's head dim (160, H/Hkv = 4; the DMAX=256
+    instantiation) and recurrentgemma_2b's (256, one KV head), ragged S,
+    per output row against the plain version (2e-2 in bf16)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+
+    g = torch.Generator(device=card).manual_seed(s * d + h)
+    q = torch.randn(2, s, h, d, generator=g, device=card).bfloat16()
+    k = torch.randn(2, s, hkv, d, generator=g, device=card).bfloat16()
+    v = torch.randn(2, s, hkv, d, generator=g, device=card).bfloat16()
+    before = kernels.VARIANT_LAUNCHES["flash_attention"]["flash_mma"]
+    got = flash_attention_bshd(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.VARIANT_LAUNCHES["flash_attention"]["flash_mma"] == before + 1
+    assert _row_rel_err(got, flash_attention_bshd(q, k, v, use_kernel=False)) <= FLASH_TOL[torch.bfloat16]
+
+
+def test_flash_forced_kind_launches_that_variant(card):
+    """kind="flash_mma" at D=128 (where the wrapper would take flash_wgmma)
+    launches and counts flash_mma and matches plain per row; a variant that
+    cannot take the shape is refused by the launcher."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+
+    g = torch.Generator(device=card).manual_seed(7)
+    q = torch.randn(2, 200, 8, 128, generator=g, device=card).bfloat16()
+    k, v = (torch.randn(2, 200, 2, 128, generator=g, device=card).bfloat16() for _ in range(2))
+    before = dict(kernels.VARIANT_LAUNCHES["flash_attention"])
+    got = flash_attention_bshd(q, k, v, kind="flash_mma")
+    after = kernels.VARIANT_LAUNCHES["flash_attention"]
+    assert after["flash_mma"] == before["flash_mma"] + 1 and after["flash_wgmma"] == before["flash_wgmma"]
+    assert _row_rel_err(got, flash_attention_bshd(q, k, v, use_kernel=False)) <= FLASH_TOL[torch.bfloat16]
+    q = torch.zeros(1, 8, 2, 160, device=card, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        flash_attention_bshd(q, q, q, kind="flash_wgmma")
+
+
+def test_flash_mma_is_strictly_causal_at_d256(card):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+
+    g = torch.Generator(device=card).manual_seed(6)
+    q = torch.randn(2, 384, 10, 256, generator=g, device=card).bfloat16()
+    k, v = (torch.randn(2, 384, 1, 256, generator=g, device=card).bfloat16() for _ in range(2))
+    o1 = flash_attention_bshd(q, k, v)
+    for cut in (200, 256):  # inside a key tile, and at a tile boundary
+        k2, v2 = k.clone(), v.clone()
+        k2[:, cut:], v2[:, cut:] = 99.0, -99.0
+        assert torch.equal(o1[:, :cut], flash_attention_bshd(q, k2, v2)[:, :cut])
+
+
+@pytest.mark.parametrize("arch", ["codeqwen15_7b", "granite_3_2b", "qwen15_110b", "qwen2_moe_a27b",
+                                  "moonshot_v1_16b_a3b", "recurrentgemma_2b", "pixtral_12b", "whisper_tiny"])
+def test_family_decode_on_card_matches_forward(card, arch):
+    """The other families at smoke size in float32: flash runs once per
+    attention layer of the prefill, and cached decode reproduces the
+    kernel path's teacher-forced logits to 2e-3 (a VLM's decode runs on
+    text alone; Whisper's after priming its cross cache)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.models.whisper import whisper_prime_cache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).smoke()
+    params = models.init(cfg, torch.Generator(device=card).manual_seed(0), card)
+    g = torch.Generator(device=card).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40), generator=g, device=card)}
+    cache = models.init_cache(cfg, 2, 40, card)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros(2, 0, cfg.d_model, device=card)
+    if cfg.family == "audio":
+        batch["enc_embeds"] = torch.randn(2, cfg.enc_seq_len, cfg.d_model, generator=g, device=card)
+        cache = whisper_prime_cache(cfg, params, cache, batch["enc_embeds"])
+    before = kernels.LAUNCHES["flash_attention"]
+    full = models.forward(cfg, params, batch)
+    n_attn = cfg.n_layers if cfg.family == "audio" else cfg.layer_kinds().count("attn")
+    # recurrentgemma's 40 positions pass its window of 16: the block-local form, no kernel
+    assert kernels.LAUNCHES["flash_attention"] == before + (0 if cfg.local_window else n_attn)
+    dec = []
+    for t in range(40):
+        logits, cache = models.decode_step(cfg, params, cache, batch["tokens"][:, t], t)
+        dec.append(logits)
+    torch.testing.assert_close(torch.stack(dec, 1), full, rtol=2e-3, atol=2e-3)
+
+
+def _smoke_layer(arch, card):
+    """The first layer of ``arch``'s float32 smoke model, on the CPU and on
+    the card, and an input."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import _layers
+
+    cfg = get_config(arch).smoke()
+    params = models.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    kind, lp = next(_layers(params, cfg))
+    x = torch.randn(2, 300, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    return cfg, kind, lp, {k: v.to(card) for k, v in lp.items()}, x
+
+
+def test_moe_prefill_layer_on_card_matches_cpu(card):
+    """One qwen2_moe_a27b prefill layer (flash attention, then the sorted
+    MoE dispatch at capacity 1.25, as a prefill runs it) on the
+    card against the same layer on the CPU, float32."""
+    from repro_torch.models.lm import _apply_layer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, kind, lp, lp_card, x = _smoke_layer("qwen2_moe_a27b", card)
+    cfg = dataclasses.replace(cfg, capacity_factor=1.25)
+    pos = torch.arange(300).expand(2, 300)
+    want = _apply_layer(kind, lp, x, cfg, pos, True)
+    before = kernels.LAUNCHES["flash_attention"]
+    got = _apply_layer(kind, lp_card, x.to(card), cfg, pos.to(card), True)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert _rel_err(got.cpu(), want) <= 1e-5
+
+
+def test_rglru_block_on_card_matches_cpu(card):
+    """recurrentgemma_2b's RG-LRU block (conv, gates, the doubling scan)
+    on the card against the CPU, float32, from a carried state."""
+    from repro_torch.models import rglru
+    from repro_torch.models.common import sub
+
+    cfg, kind, lp, lp_card, x = _smoke_layer("recurrentgemma_2b", card)
+    assert kind == "rglru"
+    g = torch.Generator().manual_seed(2)
+    h0, conv0 = torch.randn(2, cfg.d_rnn, generator=g), torch.randn(2, cfg.conv_width - 1, cfg.d_rnn, generator=g)
+    want, (wh, wc) = rglru.rglru_block(sub(lp, "rec"), x, h0, conv0)
+    got, (gh, gc) = rglru.rglru_block(sub(lp_card, "rec"), x.to(card), h0.to(card), conv0.to(card))
+    for a, b in ((got, want), (gh, wh), (gc, wc)):
+        assert _rel_err(a.cpu(), b) <= 1e-5
 
 
 # ------------------------------------------------------ the planned pipeline

@@ -105,6 +105,13 @@ def test_flash_wrapper_rejects_mismatched_shapes():
         flash_attention_bshd(q, torch.zeros(1, 9, 2, 16), torch.zeros(1, 9, 2, 16))
 
 
+def test_flash_wrapper_rejects_an_unknown_kind():
+    q = torch.zeros(1, 8, 4, 16)
+    with pytest.raises(ValueError):
+        flash_attention_bshd(q, q, q, kind="flash_fast")
+    torch.testing.assert_close(flash_attention_bshd(q, q, q, kind="flash_mma"), flash_attention_bshd(q, q, q))
+
+
 @pytest.mark.parametrize("t,chunk", [(64, 16), (32, 32), (48, 8)])
 def test_scan_plain_matches_pallas(t, chunk):
     rng = np.random.default_rng(t + chunk)
