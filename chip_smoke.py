@@ -127,7 +127,23 @@ Phases (any failure exits non-zero):
      and with the weights in float32 at a depth whose float32 weights fit
      (held below F32_LOGITS_TOL, with the bf16-vs-float32 control above
      it), then launch/serve.main (4 requests, prompt 16, generate 32);
-  20. summary lines, then {"ok": true, "device": {...}} as the last line.
+  20. LM training on the card: the flash attention and RWKV6 scan backward
+     kernels alone against autograd through their plain versions (per
+     tensor relative L2) at the training shapes in bf16 and float32, at
+     the smoke D=16 and at flash's D=160 and 256, with planted-fault plain
+     gradients above the float32 limits; the kernel path's loss and every
+     float32 gradient at full width, 1 layer deep, against the plain
+     path's (a planted fault in the backward kernel's output and the
+     bf16-weights control above the limit); llama3_8b (4 of 32
+     layers) and rwkv6_3b (all 32) at full width in bf16 through
+     make_train_step, B=2 x S=2048 of the synthetic data, AdamW: a warm-up
+     step and 3 timed steps (seconds, tokens/s, peak memory, loss, grad
+     norm, launches by variant, held to each forward kernel twice per
+     layer and each backward kernel once); each backward kernel timed
+     against its plain version (flash also against the backward of
+     scaled_dot_product_attention) with its bound; then
+     launch/train.main --arch llama3_8b --layers 4 --steps 3;
+  21. summary lines, then {"ok": true, "device": {...}} as the last line.
 Needs a CUDA card; exits non-zero without one, printing no result.
 """
 from __future__ import annotations
@@ -141,6 +157,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -230,6 +247,30 @@ FAMILIES = {
     "recurrentgemma_2b": dict(layers=None, f32_layers=None, seq=LM_SEQ, variant="flash_mma"),
     "whisper_tiny": dict(layers=None, f32_layers=None, seq=448, variant="flash_wgmma"),
 }
+# Phase 20: training at full width in bf16, B x S of the synthetic data,
+# TRAIN_STEPS timed steps after a warm-up.  llama3_8b is cut to 4 of its 32
+# layers: bf16 weights and gradients and float32 moments take 12 bytes a
+# parameter (~96 GB whole); 4 layers keep its 128,256-row embedding and head
+# (1.9 B parameters, ~23 GB of state).  rwkv6_3b at all 32 layers (3.1 B,
+# ~37 GB).  The float32 gradient check runs 1 layer deep (the plain path's
+# [B, H, S, S] scores and the plain scan's T-step autograd loop).
+TRAIN_ARCHS = {"llama3_8b": dict(layers=4, f32_layers=1), "rwkv6_3b": dict(layers=None, f32_layers=1)}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+TRAIN_CLI = ["--arch", "llama3_8b", "--layers", "4", "--steps", "3"]
+# Backward kernels vs autograd through their plain versions, per tensor
+# ||got - want|| / ||want||.  float32: the sums run in other orders (read
+# 2.0e-6 and 6.2e-7 on an H100).  bf16: each side rounds its gradients (and
+# the flash kernel its forward output, which its Delta reads) to bf16 once,
+# and flash's bwd_mma rounds P and dS to bf16 for its tensor-core products
+# (read 3.3e-3; the scan 5.6e-5).  Phase 20 checks that plain gradients with
+# a planted fault read above the float32 limits (1.0e-2 and more).
+BWD_TOL = {"flash_attention_bwd": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
+           "rwkv6_scan_bwd": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
+# Phase 20: the kernel path's float32 gradients vs the plain path's, per
+# tensor (read 9.6e-7 for llama3_8b and 3.2e-6 for rwkv6_3b at 1 layer on an
+# H100); a planted fault in the backward kernel's output (5.1e-2, 0.12) and
+# the control, bf16 weights against float32 (0.18, 0.30), must read above it.
+TRAIN_GRAD_TOL = 1e-4
 
 
 def log(*args):
@@ -1601,6 +1642,359 @@ def plan_store_path():
     return rec
 
 
+# ---------------------------------------------------------------- phase 20
+def train_path(dev):
+    """LM training on the card (see phase 20 above): the backward kernels
+    alone against their plain versions, the kernel path's float32
+    gradients against the plain path's, the training runs and the CLI."""
+    rec = {"kernels_vs_plain": backward_kernel_cases(dev)}
+    rec["f32_grads"] = {arch: train_grads_vs_plain(arch, dev, spec["f32_layers"]) for arch, spec in TRAIN_ARCHS.items()}
+    rec["runs"] = {arch: train_run(arch, dev, spec["layers"]) for arch, spec in TRAIN_ARCHS.items()}
+    rec["timings"] = backward_timings(dev)
+    # the CLI, in process, as a user would start it
+    from repro_torch.launch import train as train_cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt, contextlib.redirect_stdout(buf):
+        losses = train_cli.main(TRAIN_CLI + ["--checkpoint-dir", ckpt])
+    rec["cli"] = dict(argv=TRAIN_CLI, seconds=time.perf_counter() - t0, losses=losses)
+    log(f"  CLI {' '.join(TRAIN_CLI)}: {rec['cli']['seconds']:.1f} s, losses {[round(x, 4) for x in losses]}")
+    if len(losses) != 3 or not all(np.isfinite(losses)):
+        fail(f"the train CLI returned losses {losses}; output {buf.getvalue()[-1500:]!r}")
+    return rec
+
+
+def grad_rel(got: dict, want: dict) -> tuple:
+    """(largest per-tensor ||got - want|| / ||want||, its key) over the
+    tensors whose plain gradient is not zero."""
+    worst = (0.0, "")
+    for k, w in want.items():
+        norm = w.double().norm().item()
+        if norm > 0:
+            worst = max(worst, ((got[k].double() - w.double()).norm().item() / norm, k))
+    return worst
+
+
+def flash_grads(q, k, v, do, use_kernel=True):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+
+    q, k, v = (a.detach().requires_grad_(True) for a in (q, k, v))
+    flash_attention_bshd(q, k, v, use_kernel=use_kernel).backward(do)
+    return {"q": q.grad, "k": k.grad, "v": v.grad}
+
+
+def scan_grads(r, k, v, logw, u, do, use_kernel=True):
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
+
+    leaves = {n: a.detach().requires_grad_(True) for n, a in zip(("r", "k", "v", "logw", "u"), (r, k, v, logw, u))}
+    out, _ = rwkv6_wkv(*leaves.values(), out_dtype=do.dtype, use_kernel=use_kernel)
+    out.backward(do)
+    return {n: a.grad for n, a in leaves.items()}
+
+
+def flash_inputs(dev, g, dtype, b, s, h, hkv, d):
+    q = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device=dev).to(dtype) for _ in range(2))
+    return q, k, v, torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+
+
+def scan_inputs(dev, g, dtype, b, t, h, n):
+    r, k = ((0.5 * torch.randn(b, t, h, n, generator=g, device=dev)).to(dtype) for _ in range(2))
+    v = torch.randn(b, t, h, n, generator=g, device=dev).to(dtype)
+    logw = -torch.exp(torch.rand(b, t, h, n, generator=g, device=dev) * 14.0 - 8.0)  # -exp(-8) .. -exp(6)
+    u = 0.1 * torch.randn(h, n, generator=g, device=dev)
+    return r, k, v, logw, u, torch.randn(b, t, h, n, generator=g, device=dev)  # the wkv output is float32
+
+
+def backward_kernel_cases(dev):
+    """Each backward kernel alone against autograd through its plain
+    version, per tensor relative L2: at the training shapes in bf16 and
+    float32, at the smoke D=16 and (flash) at D=160 and 256; at the float32
+    training shapes, plain gradients with a planted fault must read above
+    the float32 limit."""
+    from repro_torch import kernels
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    worst = {"flash_attention_bwd": {}, "rwkv6_scan_bwd": {}}
+    controls = {}
+
+    def check(name, dtype, label, got, want):
+        rel, key = grad_rel(got, want)
+        tol = BWD_TOL[name][dtype]
+        worst[name][str(dtype)[6:]] = max(worst[name].get(str(dtype)[6:], 0.0), rel)
+        if not rel <= tol:
+            fail(f"{name} {label} {dtype}: d{key} rel L2 {rel:.3e} > {tol}")
+        return want
+
+    flash_cases = [(TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128), (2, 37, 4, 4, 16), (1, 300, 8, 2, 160), (1, 300, 10, 1, 256)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, hkv, d in flash_cases:
+            q, k, v, do = flash_inputs(dev, g, dtype, b, s, h, hkv, d)
+            before = kernels.LAUNCHES["flash_attention_bwd"]
+            got = flash_grads(q, k, v, do)
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES["flash_attention_bwd"] != before + 1:
+                fail(f"flash backward at D={d} did not launch its kernel once")
+            want = check("flash_attention_bwd", dtype, f"B={b} S={s} H={h} Hkv={hkv} D={d}", got,
+                         flash_grads(q, k, v, do, use_kernel=False))
+            if dtype == torch.float32 and s == TRAIN_SEQ:
+                controls["flash_attention_bwd"] = flash_bwd_controls(q, k, v, do, want)
+            del q, k, v, do, got, want
+        for b, t, h, n in ((TRAIN_BATCH, TRAIN_SEQ, 40, 64), (2, 100, 4, 16)):
+            r, k, v, logw, u, do = scan_inputs(dev, g, dtype, b, t, h, n)
+            before = kernels.LAUNCHES["rwkv6_scan_bwd"]
+            got = scan_grads(r, k, v, logw, u, do)
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES["rwkv6_scan_bwd"] != before + 1:
+                fail(f"scan backward at N={n} did not launch its kernel once")
+            want = scan_grads(r, k, v, logw, u, do, use_kernel=False)
+            check("rwkv6_scan_bwd", dtype, f"B={b} T={t} H={h} N={n} (r, k, v)",
+                  {x: got[x] for x in "rkv"}, {x: want[x] for x in "rkv"})
+            check("rwkv6_scan_bwd", torch.float32, f"B={b} T={t} H={h} N={n} (logw, u)",
+                  {x: got[x] for x in ("logw", "u")}, {x: want[x] for x in ("logw", "u")})
+            if dtype == torch.float32 and t == TRAIN_SEQ:
+                controls["rwkv6_scan_bwd"] = scan_bwd_controls(r, k, v, do, u, want)
+            del r, k, v, logw, u, do, got, want
+    for name, faults in controls.items():
+        tol = BWD_TOL[name][torch.float32]
+        log(f"  {name} worst per-tensor rel L2 vs plain: " + ", ".join(f"{k} {v:.2e}" for k, v in worst[name].items())
+            + "; planted-fault controls (float32) " + ", ".join(f"{c} {x:.3e}" for c, x in faults.items())
+            + f", limit {tol}")
+        if not min(faults.values()) > tol:
+            fail(f"the float32 {name} limit {tol} does not reject every planted fault: {faults}")
+    torch.cuda.empty_cache()
+    return {"worst": worst, "controls": controls}
+
+
+def flash_bwd_controls(q, k, v, do, want, tile: int = 64) -> dict:
+    """The plain gradients with a planted fault, each held against ``want``
+    by the per-tensor metric: dq of the last query tile without its
+    diagonal key tile; dk and dv without the last query head of each GQA
+    group."""
+    b, s, h, d = q.shape
+    rep = h // k.shape[2]
+    qr, dor = q[:, s - tile:].float(), do[:, s - tile:].float()
+    kk, vv = (a.float().repeat_interleave(rep, dim=2) for a in (k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qr, kk) / d**0.5
+    causal = torch.arange(s, device=q.device)[None, :] <= torch.arange(s - tile, s, device=q.device)[:, None]
+    p = torch.softmax(torch.where(causal, logits, -torch.inf), dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vv)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dor, vv)
+    ds = p * (dp - (dor * o).sum(-1).transpose(1, 2)[..., None])
+    ds[..., s - tile:] = 0.0  # the diagonal key tile dropped
+    dq = want["q"].clone()
+    dq[:, s - tile:] = (torch.einsum("bhqk,bkhd->bqhd", ds, kk) / d**0.5).to(dq.dtype)
+    del logits, p, dp, ds
+    # per query head gradients of k and v through the plain version, then the group sums without one head
+    kx, vx = (a.repeat_interleave(rep, dim=2).detach().requires_grad_(True) for a in (k, v))
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+    flash_attention_bshd(q, kx, vx, use_kernel=False).backward(do)
+    part = lambda x: x.reshape(b, s, h // rep, rep, d)[:, :, :, :-1].sum(3)
+    faults = {"dq_diagonal_tile_dropped": {"q": dq}, "dk_dv_one_group_head_dropped": {"k": part(kx.grad), "v": part(vx.grad)}}
+    return {name: grad_rel(f, {x: want[x] for x in f})[0] for name, f in faults.items()}
+
+
+def scan_bwd_controls(r, k, v, do, u, want) -> dict:
+    """Plain scan gradients with a planted fault: dr without the bonus
+    term u k (v . do); du summed over the first batch element only."""
+    vdo = (v.float() * do.float()).sum(-1, keepdim=True)
+    faults = {"dr_bonus_dropped": {"r": want["r"] - (u * k.float() * vdo).to(want["r"].dtype)},
+              "du_one_batch_element": {"u": (r.float() * k.float() * vdo)[:1].sum((0, 1))}}
+    return {name: grad_rel(f, {x: want[x] for x in f})[0] for name, f in faults.items()}
+
+
+def train_grads_vs_plain(arch: str, dev, layers: int) -> dict:
+    """At full width, ``layers`` deep, float32 weights: loss and every
+    gradient of the kernel path (flash or the scan, forward and backward)
+    against the plain path on the same batch, per tensor relative L2, held
+    below TRAIN_GRAD_TOL.  Two readings must land above it: the kernel path
+    with a planted fault in its backward kernel's output (dq of the last 64
+    positions dropped, or dk of the scan's last chunk of 32), and the
+    control, the plain path with the weights in bf16."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv6_scan import ops as scan_ops
+    from repro_torch.launch.specs import loss_and_grads
+    from repro_torch.train.data import SyntheticLM
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+    params = models.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = next(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1, device=dev))
+    want_loss, want = loss_and_grads(cfg, params, batch, use_kernel=False)
+    loss, got = loss_and_grads(cfg, params, batch)
+    rel, key = grad_rel(got, want)
+    del got
+    ops = scan_ops if cfg.family == "ssm" else flash_ops
+    launch_bwd = ops._launch_bwd
+
+    def planted(*args):
+        grads = launch_bwd(*args)
+        grads[0 if ops is flash_ops else 1][:, -64 if ops is flash_ops else -32:] = 0.0
+        return grads
+
+    ops._launch_bwd = planted
+    try:
+        _, bad = loss_and_grads(cfg, params, batch)
+    finally:
+        ops._launch_bwd = launch_bwd
+    fault = grad_rel(bad, want)[0]
+    del bad
+    params = {k: v.bfloat16() for k, v in params.items()}
+    _, bf = loss_and_grads(dataclasses.replace(cfg, dtype="bfloat16"), params, batch, use_kernel=False)
+    control, control_key = grad_rel(bf, want)
+    del params, bf, want
+    torch.cuda.empty_cache()
+    rec = dict(layers=layers, loss=loss.item(), plain_loss=want_loss.item(), grad_rel_l2=rel, worst_tensor=key,
+               planted_fault_rel_l2=fault, control_bf16_rel_l2=control, control_worst_tensor=control_key,
+               seconds=time.perf_counter() - t0)
+    log(f"  {arch} float32 gradients, {layers} layer(s): kernel vs plain per-tensor rel L2 {rel:.3e} ({key}), loss "
+        f"{rec['loss']:.6f} vs {rec['plain_loss']:.6f}; planted fault {fault:.3e}; control bf16 weights "
+        f"{control:.3e} ({control_key}); limit {TRAIN_GRAD_TOL}")
+    if not rel <= TRAIN_GRAD_TOL < min(fault, control):
+        fail(f"{arch} float32 gradients: kernel vs plain {rel:.3e}, the planted fault {fault:.3e} and the bf16 "
+             f"control {control:.3e} do not bracket {TRAIN_GRAD_TOL}")
+    if not abs(rec["loss"] - rec["plain_loss"]) <= 1e-5 * abs(rec["plain_loss"]):
+        fail(f"{arch} float32 loss {rec['loss']} vs plain {rec['plain_loss']}")
+    return rec
+
+
+def train_run(arch: str, dev, layers) -> dict:
+    """make_train_step at full width in bf16 (``layers`` deep, or all),
+    B x S = TRAIN_BATCH x TRAIN_SEQ of the synthetic data, AdamW: a warm-up
+    step, then TRAIN_STEPS timed steps, each with its seconds, tokens/s,
+    peak memory, loss, grad norm and the launches of every kernel by
+    variant (counts set to 0 before the step), held to the design's
+    counts: each forward kernel twice per layer (the forward and the
+    checkpointed block's recompute), each backward kernel once."""
+    from repro_torch import kernels, models
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import make_train_step
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optim import OptConfig, init_opt_state
+
+    t_start = time.perf_counter()
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    params = models.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(p.numel() for p in params.values())
+    opt = init_opt_state(params)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0, device=dev)
+    step = make_train_step(cfg, OptConfig(warmup_steps=1, total_steps=TRAIN_STEPS + 1))
+    fwd, bwd = ("rwkv6_scan", "rwkv6_scan_bwd") if cfg.family == "ssm" else ("flash_attention", "flash_attention_bwd")
+    n = cfg.n_layers if cfg.family == "ssm" else cfg.layer_kinds().count("attn")
+    rec = dict(arch=arch, layers=cfg.n_layers, params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               state_gb=n_params * 12 / 1e9, steps=[])
+    for i in range(TRAIN_STEPS + 1):  # step 0 warms up (cuBLAS handles, kernel library loads)
+        batch = next(data)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        row = dict(seconds=dt, tokens_s=TRAIN_BATCH * TRAIN_SEQ / dt, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]), lr=float(metrics["lr"]),
+                   launches={k: v for k, v in kernels.LAUNCHES.items() if v},
+                   variants={k: {x: c for x, c in kernels.VARIANT_LAUNCHES[k].items() if c} for k in (fwd, bwd)})
+        if i:
+            rec["steps"].append(row)
+        log(f"  {arch} {'warm-up' if i == 0 else f'step {i}'}: {dt:.3f} s ({row['tokens_s']:.0f} tok/s), peak "
+            f"{row['peak_gib']:.2f} GiB, loss {row['loss']:.4f}, grad norm {row['grad_norm']:.4f}, {row['variants']}")
+        if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
+            fail(f"{arch} training step {i}: loss {row['loss']}, grad norm {row['grad_norm']}")
+        want = {fwd: 2 * n, bwd: n}
+        if row["launches"] != want:
+            fail(f"{arch} training step {i} launched {row['launches']}, not {want}")
+    del params, opt
+    torch.cuda.empty_cache()
+    rec.update(wall_s=time.perf_counter() - t_start, launches=rec["steps"][-1]["launches"],
+               variants=rec["steps"][-1]["variants"], step_s=float(np.mean([r["seconds"] for r in rec["steps"]])),
+               peak_gib=max(r["peak_gib"] for r in rec["steps"]))
+    rec["tokens_s"] = TRAIN_BATCH * TRAIN_SEQ / rec["step_s"]
+    return rec
+
+
+def backward_timings(dev) -> dict:
+    """Each backward kernel timed alone at its training shape in bf16
+    beside its plain version's backward (autograd through ref.py) and, for
+    flash, the backward of scaled_dot_product_attention(is_causal=True);
+    each with its bound.  FA2's backward does 2.5 times the forward's
+    matrix operations (five products of the causal pairs, not two); the
+    scan's backward 12 N^2 operations per token and head, priced as the
+    forward scan's bound prices them (products at the tensor cores' TF32
+    rate over their split passes, the rest at 67 TFLOP/s), with every
+    operation at 67 TFLOP/s logged beside it."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv6_scan import ops as scan_ops
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = {}
+    b, s, h, hkv, d = TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128
+    q, k, v, do = flash_inputs(dev, g, torch.bfloat16, b, s, h, hkv, d)
+    o, lse = flash_ops._launch(q, k, v, with_lse=True)
+    leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
+    plain_o = flash_ops.flash_attention_bshd(*leaves, use_kernel=False)
+    sdpa_in = [a.detach().transpose(1, 2).requires_grad_(True) for a in (q, k, v)]
+    sdpa_o = torch.nn.functional.scaled_dot_product_attention(*sdpa_in, is_causal=True, enable_gqa=True)
+    sdpa_do = do.transpose(1, 2)
+    fns = dict(ms=lambda: flash_ops._launch_bwd(q, k, v, o, lse, do),
+               plain_ms=lambda: torch.autograd.grad(plain_o, leaves, do, retain_graph=True),
+               library_ms=lambda: torch.autograd.grad(sdpa_o, sdpa_in, sdpa_do, retain_graph=True))
+    got = fns["ms"]()
+    want = fns["plain_ms"]()
+    rel = grad_rel(dict(zip("qkv", got)), dict(zip("qkv", want)))[0]
+    ops = 2.5 * 4.0 * d * b * h * s * (s + 1) / 2
+    nbytes = 2.0 * (3 * b * s * h * d + 4 * b * s * hkv * d) + 4.0 * b * h * s  # q, o, do, dq; k, v, dk, dv; lse
+    rows["flash_attention_bwd"] = dict(
+        shape=dict(B=b, S=s, H=h, Hkv=hkv, D=d, dtype="bfloat16"), variant=flash_ops.bwd_variant(torch.bfloat16, d),
+        rel_l2=rel, max_abs_err=max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want)),
+        ops=ops, bytes=nbytes, **timed(fns, dict(ms=10, plain_ms=3, library_ms=10)), **bound(ops, 989e12, nbytes))
+    del q, k, v, do, o, lse, leaves, plain_o, sdpa_in, sdpa_o, sdpa_do, fns, got, want
+    torch.cuda.empty_cache()
+
+    b, t, h, n = TRAIN_BATCH, TRAIN_SEQ, 40, 64
+    r, k, v, logw, u, do = scan_inputs(dev, g, torch.bfloat16, b, t, h, n)
+    leaves = [a.detach().requires_grad_(True) for a in (r, k, v, logw, u)]
+    plain_out, _ = scan_ops.rwkv6_wkv(*leaves, out_dtype=torch.float32, use_kernel=False)
+    fns = dict(ms=lambda: scan_ops._launch_bwd(r, k, v, logw, u, None, do),
+               plain_ms=lambda: torch.autograd.grad(plain_out, leaves, do, retain_graph=True))
+    got = fns["ms"]()
+    want = fns["plain_ms"]()
+    rel = grad_rel(dict(zip(("r", "k", "v", "logw", "u"), got)), dict(zip(("r", "k", "v", "logw", "u"), want)))[0]
+    tokens = b * t * h
+    # per token and head: five products that a chunked form runs on the tensor
+    # cores (dr = do S^T, dk = G v, dv = G^T k, the increments k^T v of S and
+    # r^T do of G), 2 N^2 flops each, with their TF32 split passes counted as
+    # the forward's bound counts them (3 with both operands float32, 2 against
+    # bf16 k or v); dlogw = w * rowsum(G * S) on the CUDA cores
+    passes = {"dr": 3, "dk": 2, "dv": 2, "s_increment": 2, "g_increment": 3}
+    t_tensor = tokens * 2 * n * n * sum(passes.values()) / 495e12 * 1e3
+    t_cuda = tokens * 2 * n * n / 67e12 * 1e3
+    ops = tokens * 2 * n * n * (len(passes) + 1)
+    nbytes = (2.0 * 3 + 4.0 * 2) * b * t * h * n + (2.0 * 3 + 4.0) * b * t * h * n + 4.0 * 2 * h * n
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(t_tensor, t_cuda, t_bytes)
+    rows["rwkv6_scan_bwd"] = dict(
+        shape=dict(B=b, T=t, H=h, N=n, dtype="bfloat16", out_dtype="float32"), variant=f"n{n}", rel_l2=rel,
+        max_abs_err=max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want)), ops=ops,
+        bytes=nbytes, library_ms=None, **timed(fns, dict(ms=10, plain_ms=1)),
+        bound_ms=bound_ms, bound_by="bytes" if bound_ms == t_bytes else "operations",
+        bound_tensor_ms=t_tensor, bound_cuda_core_ms=t_cuda, bound_bytes_ms=t_bytes,
+        bound_f32_ms=max(ops / 67e12 * 1e3, t_bytes))
+    del r, k, v, logw, u, do, leaves, plain_out, fns, got, want
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        log(f"  timing {name} " + json.dumps(row))
+        if not row["rel_l2"] <= BWD_TOL[name][torch.bfloat16]:
+            fail(f"{name} at the training shape: kernel vs plain rel L2 {row['rel_l2']:.3e}")
+    return rows
+
+
 def timed(fns, reps):
     """Each function's time, the faster of two interleaved CUDA-event means."""
     runs = {k: [] for k in fns}
@@ -1650,7 +2044,7 @@ def main():
     record = {"device": device_name, "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     # ---- phase 2: build + kernel vs plain
-    sources = [block_gemm_ops.SOURCE, flash_ops.SOURCE, scan_ops.SOURCE]
+    sources = [block_gemm_ops.SOURCE, flash_ops.SOURCE, scan_ops.SOURCE, flash_ops.BWD_SOURCE, scan_ops.BWD_SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:  # one nvcc each, all started together
         libs = list(pool.map(build, sources))
@@ -1661,7 +2055,9 @@ def main():
         entry = None
         for line in lib.with_suffix(".log").read_text().splitlines():
             found = re.search(r"Compiling entry function '\w*?\d(flash_simple|flash_mma|flash_wgmma|tiled_dmma|tiled_fma|"
-                              r"skinny|second_pass|rwkv6_chunk_kernel|rwkv6_state_kernel)(?:I(\w*?)E+v)?", line)
+                              r"skinny|second_pass|rwkv6_chunk_kernel|rwkv6_state_kernel|flash_bwd_dq_mma|flash_bwd_dkdv_mma|"
+                              r"flash_bwd_dq|flash_bwd_dkdv|"
+                              r"rwkv6_bwd_state|rwkv6_bwd_dv)(?:I(\w*?)E+v)?", line)
             if found:
                 targs = re.sub(r"Li(\d+)E?", r",\1", found.group(2) or "").replace("13__nv_bfloat16", "bf16").strip(",")
                 entry = found.group(1) + (f"<{targs}>" if targs else "")
@@ -1796,7 +2192,14 @@ def main():
     families = record["families"]
     record["families_s"] = sum(r["wall_s"] for r in families.values())
 
-    # ---- phase 20: summary
+    # ---- phase 20: training
+    log(f"phase 20: training at full width: the backward kernels vs plain, float32 gradients vs the plain path, "
+        f"{', '.join(TRAIN_ARCHS)} B={TRAIN_BATCH} x S={TRAIN_SEQ}, {TRAIN_STEPS} timed steps; then the train CLI")
+    t0 = time.perf_counter()
+    record["train"] = trained = train_path(dev)
+    trained["wall_s"] = time.perf_counter() - t0
+
+    # ---- phase 21: summary
     total = lambda k: sum(r[k] for r in mid)
     bound_ops = sum(r["bound_ms"] for r in mid if r["bound_by"] == "operations")
     bucket = planned["largest_bucket"]
@@ -1852,7 +2255,23 @@ def main():
                            k: r[k] for k in ("shape", "variant", "ms", "plain_ms", "bound_ms", "bound_by",
                                              "library_ms", "max_abs_err")}
                           for r in family_rows}})
+        train_run_rec = trained["runs"][arch]
+        entry["launches"] += sum(r["launches"][name] for r in train_run_rec["steps"])
+        entry.setdefault("paths", {})[f"{arch} training, {len(train_run_rec['steps'])} timed steps (phase 20)"] = dict(
+            launches=[r["variants"][name] for r in train_run_rec["steps"]])
         entries.append(entry)
+    for name, arch, src, replaces in (
+        ("flash_attention_bwd", "llama3_8b", "flash_attention/flash_attention_bwd.cu",
+         "none; the reference differentiates src/repro/models/attention.py:39 by autodiff"),
+        ("rwkv6_scan_bwd", "rwkv6_3b", "rwkv6_scan/rwkv6_scan_bwd.cu",
+         "none; the reference differentiates src/repro/models/rwkv6.py:118-151 by autodiff"),
+    ):
+        row, run = trained["timings"][name], trained["runs"][arch]
+        entries.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/{src}", replaces=replaces,
+            launches=sum(r["launches"][name] for r in run["steps"]), max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+            variants=[r["variants"][name] for r in run["steps"]], rel_l2=row["rel_l2"], shape=row["shape"]))
     record["kernels"] = entries
     record["total_s"] = time.perf_counter() - t_start
     out = Path(args.out)
@@ -1882,6 +2301,19 @@ def main():
         log(f"flash at {', '.join(r['archs'])} ({r['variant']}, {r['shape']}): {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, sdpa {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
             f"by {r['bound_by']}), per-row rel err {r['rel_err']:.2e}")
     log(f"phase 19: {record['families_s']:.1f} s")
+    for arch, run in trained["runs"].items():
+        f32 = trained["f32_grads"][arch]
+        log(f"{arch} training ({run['layers']} layers, {run['params'] / 1e9:.2f} B parameters, B={TRAIN_BATCH} x "
+            f"S={TRAIN_SEQ}): {run['step_s']:.3f} s a step ({run['tokens_s']:.0f} tok/s), peak {run['peak_gib']:.2f} GiB, "
+            f"losses {[round(r['loss'], 4) for r in run['steps']]}, grad norms "
+            f"{[round(r['grad_norm'], 4) for r in run['steps']]}, launches a step {run['launches']}; float32 gradients "
+            f"({f32['layers']} layer) kernel vs plain {f32['grad_rel_l2']:.2e} (control {f32['control_bf16_rel_l2']:.2e}, "
+            f"limit {TRAIN_GRAD_TOL})")
+    for name, row in trained["timings"].items():
+        lib = f", sdpa backward {row['library_ms']:.4f}" if row["library_ms"] is not None else ""
+        log(f"{name} at {row['shape']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.3f}{lib}, bound {row['bound_ms']:.4f} "
+            f"by {row['bound_by']}), rel L2 {row['rel_l2']:.2e}")
+    log(f"phase 20: {trained['wall_s']:.1f} s")
     r = timing["flash_mma_d128"]
     log(f"flash_mma at D=128: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}); pixtral's D=160 on DMAX=256 takes "
         f"{r['pixtral_ms_per_op_ratio']:.2f}x its time per operation")

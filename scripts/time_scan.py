@@ -1,6 +1,6 @@
-"""Time a tree's RWKV6 scan kernel at rwkv6_3b's time-mix shapes.
+"""Time a tree's RWKV6 scan kernel at rwkv6_3b's time-mix shapes (and, with --flash, its flash forward).
 
-    python scripts/time_scan.py [--src src] [--batch 4 1] [--split 4] [--out chiprun_out/time_scan.json]
+    python scripts/time_scan.py [--src src] [--batch 4 1] [--split 4] [--flash] [--out chiprun_out/time_scan.json]
 
 For each batch size: T=2048, H=40, N=64, bf16 r/k/v, float32 log-decay
 (-exp of a normal clipped to [-8, 6], the model's range) and bonus, float32
@@ -13,7 +13,11 @@ a parent commit unpacked under the gitignored ``build/``) is imported and
 its kernels built in its own tree, so two trees can be timed in one call to
 the card, one process each.  ``--split`` forces the state kernel's CTAs
 per head (1, 2 or 4) in place of the wrapper's pick, for trees that have
-the split variants.  Needs a CUDA card.
+the split variants.  ``--flash`` also times the flash-attention forward
+as inference calls it (no gradient), causal, B=4, S=2048, bf16, at
+llama3_8b's attention (32 query heads, 8 KV heads, D=128: ``flash_wgmma``)
+and pixtral_12b's (32/8, D=160: ``flash_mma``), with its per-row error
+against the plain version and the variant it launched.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -38,12 +42,38 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+FLASH_SHAPES = (("llama3_8b", 32, 8, 128), ("pixtral_12b", 32, 8, 160))  # (label, H, Hkv, D)
+
+
+def flash_rows(dev):
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+
+    b, s = 4, 2048
+    for label, h, hkv, d in FLASH_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(d)
+        q = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(b, s, hkv, d, generator=g, device=dev).bfloat16() for _ in range(2))
+        fn = lambda: flash_attention_bshd(q, k, v)
+        before = dict(kernels.VARIANT_LAUNCHES["flash_attention"])
+        with torch.no_grad():
+            got = fn()
+            torch.cuda.synchronize()
+            launched = [name for name, c in kernels.VARIANT_LAUNCHES["flash_attention"].items() if c != before[name]]
+            want = flash_attention_bshd(q, k, v, use_kernel=False)
+            gw, ww = got.reshape(-1, d).double(), want.reshape(-1, d).double()
+            runs = [time_ms(fn), time_ms(fn)]
+        yield dict(kernel="flash_attention", shape=label, B=b, S=s, H=h, Hkv=hkv, D=d, variant=launched, ms=min(runs),
+                   runs=runs, row_rel_err=((gw - ww).norm(dim=1) / ww.norm(dim=1).clamp_min(1e-300)).max().item())
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"),
                     help="directory that holds repro_torch")
     ap.add_argument("--batch", type=int, nargs="+", default=[4, 1])
     ap.add_argument("--split", type=int, default=None, help="force the state split (1, 2 or 4)")
+    ap.add_argument("--flash", action="store_true", help="also time the flash-attention forward")
     ap.add_argument("--out", default=None, help="JSON record (default: none)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -81,6 +111,9 @@ def main():
         print(json.dumps(row), flush=True)
         rec["runs"].append(row)
         del r, k, v, logw, got, want
+    for row in flash_rows(dev) if args.flash else ():
+        print(json.dumps(row), flush=True)
+        rec["runs"].append(row)
     print(smi)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -4,6 +4,9 @@
 that took the plain PyTorch version on the CPU does not count), so a run
 can show that its path went through the kernels.  ``VARIANT_LAUNCHES``
 splits each count by the variant of the kernel that the wrapper launched.
+The backward kernels (``flash_attention_bwd``, ``rwkv6_scan_bwd``) count
+one launch per backward call, by variant: flash's ``bwd_mma`` (tensor
+cores) or ``bwd_simple`` (CUDA cores), the scan's head dim (``n16/32/64``).
 
 A wrapper counts where it launches.  Inside a CUDA graph capture
 (``recording``) a launch is recorded into the graph and does not run, so it
@@ -15,12 +18,14 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, Iterator, Optional, Tuple
 
-LAUNCHES: Dict[str, int] = {"block_gemm": 0, "flash_attention": 0, "rwkv6_scan": 0}
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     "block_gemm": {"tiled_dmma": 0, "tiled_fma": 0, "skinny": 0},
     "flash_attention": {"flash_wgmma": 0, "flash_mma": 0, "flash_simple": 0},
     "rwkv6_scan": {"split4": 0, "split2": 0, "split1": 0},
+    "flash_attention_bwd": {"bwd_mma": 0, "bwd_simple": 0},
+    "rwkv6_scan_bwd": {"n16": 0, "n32": 0, "n64": 0},
 }
+LAUNCHES: Dict[str, int] = {name: 0 for name in VARIANT_LAUNCHES}
 _RECORDING: Optional[Dict[Tuple[str, str], int]] = None
 
 

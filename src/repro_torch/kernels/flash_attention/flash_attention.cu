@@ -6,6 +6,9 @@
 //   k  [B, S, Hkv, D]    same type; H % Hkv == 0, n_rep = H / Hkv
 //   v  [B, S, Hkv, D]
 //   o  [B, S, H, D]      q's type
+//   lse [B, H, S]        float32, optional (training): the row log-sum-exp of
+//                        the scaled scores, m + log(l), which the backward
+//                        (flash_attention_bwd.cu) recomputes p from
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention, body _kernel).  What it keeps of it: an online softmax
@@ -86,8 +89,9 @@ constexpr size_t simple_smem() {
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(S_THREADS)
     flash_simple(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int Hkv, int D, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int H, int Hkv, int D,
+                 float scale) {
   constexpr int DP = DMAX + 1;
   constexpr int NC = DMAX / 16;
   constexpr int PP = S_BK + 1;
@@ -199,6 +203,7 @@ __global__ void __launch_bounds__(S_THREADS)
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[static_cast<size_t>(bh) * S + qpos] = m[i] + logf(den);
     T* orow = o + (static_cast<size_t>(b) * S + qpos) * H * D +
               static_cast<size_t>(h) * D;
 #pragma unroll
@@ -262,8 +267,8 @@ __global__ void __launch_bounds__(M_THREADS)
     flash_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int S, int H, int Hkv, int D,
-              float scale) {
+              __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+              int H, int Hkv, int D, float scale) {
   constexpr int QS = DMAX + 8;  // row stride of Qs, Ks, Vs (bf16 elements)
   constexpr int NKS = DMAX / 16;
   constexpr int NDT = DMAX / 8;
@@ -407,6 +412,10 @@ __global__ void __launch_bounds__(M_THREADS)
   }
 
   const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
+  if (lse != nullptr && t == 0) {
+    if (row_lo < S) lse[static_cast<size_t>(bh) * S + row_lo] = m_lo + logf(d_lo);
+    if (row_hi < S) lse[static_cast<size_t>(bh) * S + row_hi] = m_hi + logf(d_hi);
+  }
 #pragma unroll
   for (int j = 0; j < NDT; ++j) {
     if (j >= ndt) continue;
@@ -568,11 +577,13 @@ __device__ __forceinline__ void wgmma_rs_tb_n64(float (&d)[32], const uint32_t (
 }
 
 
-template <int D>
+// LSE: the training instantiation writes the row log-sum-exp; inference
+// takes the one without it, so the store costs inference nothing.
+template <int D, bool LSE>
 __global__ void __launch_bounds__(W_THREADS, 1)
     flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S, int H,
-                int Hkv, float scale) {
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                float* __restrict__ lse, int S, int H, int Hkv, float scale) {
   using L = WgmmaSmem<D>;
   constexpr int PANELS = D / 64;
   constexpr uint32_t TILE_BYTES = L::TILE;
@@ -761,6 +772,12 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     }
 
     const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
+    if constexpr (LSE) {
+      if (t4 == 0) {
+        if (row_lo < S) lse[static_cast<size_t>(bh) * S + row_lo] = m_lo + logf(d_lo);
+        if (row_hi < S) lse[static_cast<size_t>(bh) * S + row_hi] = m_hi + logf(d_hi);
+      }
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * t4;
@@ -818,28 +835,28 @@ int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int heads, int 
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D>
+template <int D, bool LSE>
 int launch_wgmma(int B, int S, int H, int Hkv, cudaStream_t stream, const void* q, const void* k,
-                 const void* v, void* o, float scale) {
+                 const void* v, void* o, float* lse, float scale) {
   CUtensorMap tq, tk, tv;
   int err = encode_bshd(&tq, q, B, S, H, D);
   if (err == 0) err = encode_bshd(&tk, k, B, S, Hkv, D);
   if (err == 0) err = encode_bshd(&tv, v, B, S, Hkv, D);
   if (err != 0) return err;
   constexpr size_t smem = WgmmaSmem<D>::BYTES;
-  const cudaError_t e = cudaFuncSetAttribute(flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const cudaError_t e = cudaFuncSetAttribute(flash_wgmma<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((S + W_BQ - 1) / W_BQ, B * H);
-  flash_wgmma<D><<<grid, W_THREADS, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, Hkv,
-                                                     scale);
+  flash_wgmma<D, LSE><<<grid, W_THREADS, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S,
+                                                          H, Hkv, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int DMAX>
 int launch_simple(dim3 grid, cudaStream_t stream, const void* q, const void* k,
-                  const void* v, void* o, int S, int H, int Hkv, int D,
-                  float scale) {
+                  const void* v, void* o, float* lse, int S, int H, int Hkv,
+                  int D, float scale) {
   constexpr size_t smem = simple_smem<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_simple<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -847,13 +864,13 @@ int launch_simple(dim3 grid, cudaStream_t stream, const void* q, const void* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_simple<T, DMAX><<<grid, S_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, D, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Hkv, D, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DMAX>
 int launch_mma(dim3 grid, cudaStream_t stream, const void* q, const void* k,
-               const void* v, void* o, int S, int H, int Hkv, int D,
+               const void* v, void* o, float* lse, int S, int H, int Hkv, int D,
                float scale) {
   constexpr size_t smem = mma_smem<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -862,18 +879,18 @@ int launch_mma(dim3 grid, cudaStream_t stream, const void* q, const void* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_mma<DMAX><<<grid, M_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      H, Hkv, D, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      S, H, Hkv, D, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_simple(dim3 grid, cudaStream_t s, const void* q, const void* k,
-                    const void* v, void* o, int S, int H, int Hkv, int D,
-                    float scale) {
-  if (D <= 64) return launch_simple<T, 64>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
-  if (D <= 128) return launch_simple<T, 128>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
-  return launch_simple<T, 256>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
+                    const void* v, void* o, float* lse, int S, int H, int Hkv,
+                    int D, float scale) {
+  if (D <= 64) return launch_simple<T, 64>(grid, s, q, k, v, o, lse, S, H, Hkv, D, scale);
+  if (D <= 128) return launch_simple<T, 128>(grid, s, q, k, v, o, lse, S, H, Hkv, D, scale);
+  return launch_simple<T, 256>(grid, s, q, k, v, o, lse, S, H, Hkv, D, scale);
 }
 
 }  // namespace
@@ -881,34 +898,41 @@ int dispatch_simple(dim3 grid, cudaStream_t s, const void* q, const void* k,
 // dtype: 1 = float32, 2 = bfloat16.  variant: 0 = flash_simple, 1 =
 // flash_mma, 2 = flash_wgmma, chosen by the caller before the launch; one
 // that does not take (dtype, D) is refused.  flash_wgmma also needs q, k, v
-// 16-byte aligned (TMA).  Returns a cudaError_t: 0 when the launch was
-// accepted.  Does not synchronise.
+// 16-byte aligned (TMA).  lse: float32 [B, H, S] written when not null
+// (training), null in inference.  Returns a cudaError_t: 0 when the launch
+// was accepted.  Does not synchronise.
 extern "C" int flash_attention_launch(int dtype, int variant, const void* q, const void* k,
-                                      const void* v, void* o, int B, int S, int H, int Hkv, int D,
-                                      float scale, void* stream) {
+                                      const void* v, void* o, void* lse_ptr, int B, int S, int H, int Hkv,
+                                      int D, float scale, void* stream) {
+  float* lse = static_cast<float*>(lse_ptr);
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(B) * H > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 0) {
     const dim3 grid((S + S_BQ - 1) / S_BQ, B * H);
-    if (dtype == 1) return dispatch_simple<float>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
-    if (dtype == 2) return dispatch_simple<__nv_bfloat16>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
+    if (dtype == 1) return dispatch_simple<float>(grid, s, q, k, v, o, lse, S, H, Hkv, D, scale);
+    if (dtype == 2) return dispatch_simple<__nv_bfloat16>(grid, s, q, k, v, o, lse, S, H, Hkv, D, scale);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (variant == 1) {
     if (D % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((S + M_BQ - 1) / M_BQ, B * H);
-    if (D <= 64) return launch_mma<64>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
-    if (D <= 128) return launch_mma<128>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
-    return launch_mma<256>(grid, s, q, k, v, o, S, H, Hkv, D, scale);
+    if (D <= 64) return launch_mma<64>(grid, s, q, k, v, o, lse, S, H, Hkv, D, scale);
+    if (D <= 128) return launch_mma<128>(grid, s, q, k, v, o, lse, S, H, Hkv, D, scale);
+    return launch_mma<256>(grid, s, q, k, v, o, lse, S, H, Hkv, D, scale);
   }
   if (variant == 2) {
     for (const void* p : {q, k, v})
       if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    if (D == 64) return launch_wgmma<64>(B, S, H, Hkv, s, q, k, v, o, scale);
-    if (D == 128) return launch_wgmma<128>(B, S, H, Hkv, s, q, k, v, o, scale);
+    if (lse != nullptr) {
+      if (D == 64) return launch_wgmma<64, true>(B, S, H, Hkv, s, q, k, v, o, lse, scale);
+      if (D == 128) return launch_wgmma<128, true>(B, S, H, Hkv, s, q, k, v, o, lse, scale);
+    } else {
+      if (D == 64) return launch_wgmma<64, false>(B, S, H, Hkv, s, q, k, v, o, lse, scale);
+      if (D == 128) return launch_wgmma<128, false>(B, S, H, Hkv, s, q, k, v, o, lse, scale);
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,5 @@
-"""Model API of the port's LM scaffold: ``init / forward / init_cache /
-decode_step`` over every architecture, dispatching on ``cfg.family``
+"""Model API of the port's LM scaffold: ``init / loss_fn / forward /
+init_cache / decode_step`` over every architecture, dispatching on ``cfg.family``
 (``"audio"`` is Whisper's encoder-decoder, the rest the decoder-only LM).
 ``init`` and ``init_cache`` take ``device=None``, which means the CUDA
 card; ``forward`` and ``decode_step`` run where the parameters lie.  A
@@ -20,6 +20,14 @@ def init(cfg, generator: torch.Generator, device=None) -> Dict[str, torch.Tensor
     if cfg.family == "audio":
         return _wh.init_whisper(cfg, generator, resolve_device(device))
     return _lm.init_lm(cfg, generator, resolve_device(device))
+
+
+def loss_fn(cfg, params: Dict, batch: Dict, *, use_kernel: bool = True):
+    """Mean next-token cross entropy of ``batch`` (its ``labels`` [B,S],
+    -1 masked, beside ``forward``'s inputs)."""
+    if cfg.family == "audio":
+        return _wh.whisper_loss(cfg, params, batch, use_kernel=use_kernel)
+    return _lm.lm_loss(cfg, params, batch, use_kernel=use_kernel)
 
 
 def forward(cfg, params: Dict, batch: Dict, *, use_kernel: bool = True):

@@ -108,3 +108,18 @@ def swiglu(x, w_gate, w_up, w_down):
 
 def gelu_mlp(x, w1, b1, w2, b2):
     return gelu(x @ w1 + b1) @ w2 + b2
+
+
+def cross_entropy_loss(logits, labels, mask=None, z_loss: float = 0.0):
+    """Mean token cross entropy in float32, optional masking and z-loss.
+    The float32 logits are the one copy that the backward keeps
+    (logsumexp saves its input; the gather saves only the labels)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    loss = lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    if mask is None:
+        return loss.mean()
+    mask = mask.float()
+    return torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1.0)

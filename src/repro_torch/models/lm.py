@@ -10,19 +10,23 @@ layer pattern (``("attn",)``, ``("rwkv",)`` or recurrentgemma's
 parameters of pattern position i are stacked along a leading axis of
 ``n_full`` under ``blocks/L{i}/``; the remainder layers are unstacked
 under ``rem{j}/``.  The forward loops over layers in Python, taking a view
-of each.  This is inference only, so the reference's rematerialisation has
-no counterpart.
+of each.  When a gradient is needed, each stacked pattern block runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+``nothing_saveable`` around its block body): the backward reruns the
+block's forward, so its kernels launch twice per training step.  The
+remainder layers are not rematerialised, as in the reference.
 """
 from __future__ import annotations
 
 from typing import Dict, Iterator, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import rglru as rg
 from . import rwkv6 as rk
 from .attention import causal_attention, decode_attention
-from .common import Registry, dtype_of, layer_norm, rms_norm, rope, sub, swiglu
+from .common import Registry, cross_entropy_loss, dtype_of, layer_norm, rms_norm, rope, sub, swiglu
 from .moe import moe_ffn
 
 VOCAB_PAD = 512
@@ -48,9 +52,11 @@ def _stack_pattern(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
 def _layers(tree: Dict, cfg) -> Iterator[Tuple[str, Dict]]:
     """(kind, per-layer view) for every layer in order, of parameters or of
     a decode cache: views of the stacked ``blocks/L{i}`` tensors, then the
-    ``rem{j}`` entries."""
+    ``rem{j}`` entries.  The views come from one ``unbind`` per stacked
+    tensor, whose backward stacks the layers' gradients once; indexing each
+    layer would add a zero-filled gradient of the whole stack per layer."""
     pat, n_full, rem = _stack_pattern(cfg)
-    stacked = [sub(tree, f"blocks/L{pi}") for pi in range(len(pat))]
+    stacked = [{k: v.unbind(0) for k, v in sub(tree, f"blocks/L{pi}").items()} for pi in range(len(pat))]
     for blk in range(n_full):
         for pi, kind in enumerate(pat):
             yield kind, {k: v[blk] for k, v in stacked[pi].items()}
@@ -199,9 +205,32 @@ def lm_forward(cfg, params: Dict, tokens, patch_embeds=None, *, use_kernel: bool
     x = embed_inputs(cfg, params, tokens, patch_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    for kind, lp in _layers(params, cfg):
-        x = _apply_layer(kind, lp, x, cfg, positions, use_kernel)
+
+    def run(xc, layers):
+        for kind, lp in layers:
+            xc = _apply_layer(kind, lp, xc, cfg, positions, use_kernel)
+        return xc
+
+    layers = list(_layers(params, cfg))
+    pat, n_blocks, _ = _stack_pattern(cfg)
+    per_block = len(pat)
+    remat = torch.is_grad_enabled() and any(p.requires_grad for p in params.values())
+    for blk in range(n_blocks):
+        group = layers[blk * per_block:(blk + 1) * per_block]
+        x = checkpoint(run, x, group, use_reentrant=False, preserve_rng_state=False) if remat else run(x, group)
+    x = run(x, layers[n_blocks * per_block:])
     return rms_norm(x, params["ln_f"], cfg.norm_eps) @ _head(cfg, params)
+
+
+def lm_loss(cfg, params: Dict, batch: Dict, *, use_kernel: bool = True):
+    """batch: tokens [B,S], labels [B,S] (-1 = masked), optional
+    patch_embeds.  A VLM's patch positions are dropped before the loss."""
+    logits = lm_forward(cfg, params, batch["tokens"], batch.get("patch_embeds"), use_kernel=use_kernel)
+    if cfg.family == "vlm":
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
+    logits = logits[..., : cfg.vocab_size]
+    labels = batch["labels"]
+    return cross_entropy_loss(logits, torch.clamp(labels, min=0), mask=labels >= 0)
 
 
 # ------------------------------------------------------------------ decode

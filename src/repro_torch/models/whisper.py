@@ -20,7 +20,7 @@ from typing import Dict
 import torch
 
 from .attention import causal_attention, cross_attention, decode_attention
-from .common import Registry, dtype_of, gelu_mlp, layer_norm, sinusoidal_positions, sub
+from .common import Registry, cross_entropy_loss, dtype_of, gelu_mlp, layer_norm, sinusoidal_positions, sub
 
 
 def _attn_p(reg, prefix, cfg, dtype):
@@ -67,8 +67,9 @@ def init_whisper(cfg, generator: torch.Generator, device: torch.device) -> Dict[
 
 
 def _stack(params: Dict, name: str, n: int):
-    """Per-layer views of the stacked ``{name}/...`` tensors."""
-    stacked = sub(params, name)
+    """Per-layer views of the stacked ``{name}/...`` tensors, from one
+    ``unbind`` per tensor (see ``lm._layers``)."""
+    stacked = {k: v.unbind(0) for k, v in sub(params, name).items()}
     for i in range(n):
         yield {k: v[i] for k, v in stacked.items()}
 
@@ -122,6 +123,14 @@ def whisper_forward(cfg, params: Dict, enc_embeds, tokens, *, use_kernel: bool =
         x = _mlp(lp, x + _out(cp, cross_attention(q2, *_cross_kv(cp, enc, cfg))))
     x = layer_norm(x, 1.0 + params["dec_lnf_g"], params["dec_lnf_b"])
     return x @ params["embed"].T
+
+
+def whisper_loss(cfg, params: Dict, batch: Dict, *, use_kernel: bool = True):
+    """batch: enc_embeds [B,F,D], tokens [B,S], labels [B,S] (-1 = masked)."""
+    logits = whisper_forward(cfg, params, batch["enc_embeds"], batch["tokens"], use_kernel=use_kernel)
+    logits = logits[..., : cfg.vocab_size]
+    labels = batch["labels"]
+    return cross_entropy_loss(logits, torch.clamp(labels, min=0), mask=labels >= 0)
 
 
 # ------------------------------------------------------------------ decode

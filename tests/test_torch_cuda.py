@@ -1256,3 +1256,238 @@ def test_spmd_run_on_card_matches_batched(card):
     assert st["backend_counts"]["spmd"] > 0 and st["graphs"]["graph_captures"] == 0
     assert st["policy"]["mismatches"] == 0
     assert abs(res.energy - ref.energy) < 1e-10
+
+
+# ------------------------------------------------------- backward kernels
+# The backward kernels against autograd through the plain versions (the
+# plain version of each backward), per tensor ||got - want|| / ||want||.
+# float32: the sums run in other orders; bf16: each side rounds its
+# gradients (and the kernel its forward output, which its Delta reads) to
+# bf16 once, 2^-9 relative, and bwd_mma rounds P and dS to bf16 for its
+# tensor-core products (read 3.3e-3 on an H100).  A gradient that the plain version gives as
+# exactly zero (dq and dk at S=1, where p = 1 and dP - Delta cancels; dlogw
+# at T=1, which reaches only the dropped final state, where autograd gives
+# None) is held to the limit relative to ||dO||: the kernel's cancellation
+# leaves rounding of that scale.
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _l2_rel(got, want, scale_if_zero=0.0):
+    """||got - want|| / ||want||, or / ``scale_if_zero`` where want is zero."""
+    norm = 0.0 if want is None else want.double().norm().item()
+    diff = got.double().norm() if norm == 0 else (got.double() - want.double()).norm()
+    return (diff / max(norm or scale_if_zero, 1e-300)).item()
+
+
+def _flash_grads(q, k, v, do, use_kernel):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+
+    q, k, v = (a.detach().requires_grad_(True) for a in (q, k, v))
+    flash_attention_bshd(q, k, v, use_kernel=use_kernel).backward(do)
+    return q.grad, k.grad, v.grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d", [
+    (2, 1, 4, 4, 64),       # one token
+    (2, 37, 4, 4, 16),      # GQA 1, ragged S, the smoke head dim
+    (1, 130, 8, 2, 64),     # GQA 4, ragged over several tiles
+    (1, 200, 8, 1, 128),    # GQA 8 (one KV head), llama3_8b's head dim
+    (1, 100, 8, 2, 160),    # pixtral_12b's head dim
+    (1, 150, 4, 1, 256),    # recurrentgemma_2b's head dim, one KV head
+])
+def test_flash_backward_matches_plain(card, dtype, b, s, h, hkv, d):
+    from repro_torch.kernels.flash_attention.ops import bwd_variant
+
+    g = torch.Generator(device=card).manual_seed(s * d + h)
+    q = torch.randn(b, s, h, d, generator=g, device=card).to(dtype)
+    k = torch.randn(b, s, hkv, d, generator=g, device=card).to(dtype)
+    v = torch.randn(b, s, hkv, d, generator=g, device=card).to(dtype)
+    do = torch.randn(b, s, h, d, generator=g, device=card).to(dtype)
+    fwd, bwd = kernels.LAUNCHES["flash_attention"], dict(kernels.VARIANT_LAUNCHES["flash_attention_bwd"])
+    got = _flash_grads(q, k, v, do, True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == fwd + 1
+    kind = bwd_variant(dtype, d)
+    assert kind == ("bwd_mma" if dtype == torch.bfloat16 and d <= 128 else "bwd_simple")
+    assert kernels.VARIANT_LAUNCHES["flash_attention_bwd"] == {**bwd, kind: bwd[kind] + 1}
+    for name, gt, want in zip("qkv", got, _flash_grads(q, k, v, do, False)):
+        assert gt.dtype == dtype and gt.shape == want.shape
+        assert _l2_rel(gt, want, do.double().norm().item()) <= BWD_TOL[dtype], name
+
+
+def test_flash_backward_is_deterministic_and_causal(card):
+    """Bitwise the same gradients twice (no atomics); a query's gradient
+    does not depend on later keys, and the later keys receive none from
+    earlier queries' loss."""
+    g = torch.Generator(device=card).manual_seed(9)
+    q, k, v = (torch.randn(1, 300, 8, 64, generator=g, device=card).bfloat16() for _ in range(3))
+    k, v = k[:, :, :2].contiguous(), v[:, :, :2].contiguous()
+    do = torch.randn(1, 300, 8, 64, generator=g, device=card).bfloat16()
+    a, b = _flash_grads(q, k, v, do, True), _flash_grads(q, k, v, do, True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    do2 = do.clone()
+    do2[:, 200:] = 0  # the loss reads only the first 200 outputs
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 200:], v2[:, 200:] = 9.0, -9.0
+    dq1, dk1, dv1 = _flash_grads(q, k, v, do2, True)
+    dq2, _, _ = _flash_grads(q, k2, v2, do2, True)
+    assert torch.equal(dq1[:, :200], dq2[:, :200])
+    assert not dk1[:, 200:].any() and not dv1[:, 200:].any()
+
+
+def test_flash_backward_refuses_misaligned_operands(card):
+    """bwd_mma moves its operands in 16-byte pieces: a dout that is not
+    16-byte aligned raises rather than taking another variant."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    g = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn(1, 40, 2, 64, generator=g, device=card).bfloat16() for _ in range(3))
+    out, lse = flash_ops._launch(q, k, v, with_lse=True)
+    do = torch.randn(q.numel() + 1, generator=g, device=card).bfloat16()[1:].view(q.shape)
+    before = dict(kernels.VARIANT_LAUNCHES["flash_attention_bwd"])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_ops._launch_bwd(q, k, v, out, lse, do)
+    assert kernels.VARIANT_LAUNCHES["flash_attention_bwd"] == before
+    flash_ops._launch_bwd(q, k, v, out, lse, do.clone())
+
+
+def _scan_grads(r, k, v, logw, u, do, use_kernel, state=None):
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
+
+    leaves = [a.detach().requires_grad_(True) for a in (r, k, v, logw, u)]
+    out, _ = rwkv6_wkv(*leaves, state=state, out_dtype=do.dtype, use_kernel=use_kernel)
+    out.backward(do)
+    return [a.grad for a in leaves]
+
+
+def _scan_inputs(card, dtype, b, t, h, n, seed, logw_max=6.0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    r, k = ((0.5 * torch.randn(b, t, h, n, generator=g, device=card)).to(dtype) for _ in range(2))
+    v = torch.randn(b, t, h, n, generator=g, device=card).to(dtype)
+    # log-decay from -exp(-8) down to -exp(logw_max) (the model's clip is exp(6))
+    logw = -torch.exp(torch.rand(b, t, h, n, generator=g, device=card) * (logw_max + 8.0) - 8.0)
+    u = 0.1 * torch.randn(h, n, generator=g, device=card)
+    do = torch.randn(b, t, h, n, generator=g, device=card)
+    return r, k, v, logw, u, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,n", [
+    (2, 1, 3, 16),
+    (1, 33, 2, 64),     # T ragged over two chunks
+    (2, 100, 2, 16),    # four chunks, the last ragged
+    (1, 70, 3, 32),
+    (2, 64, 2, 64),
+])
+def test_scan_backward_matches_plain(card, dtype, b, t, h, n):
+    r, k, v, logw, u, do = _scan_inputs(card, dtype, b, t, h, n, seed=t * n + b)
+    before = dict(kernels.VARIANT_LAUNCHES["rwkv6_scan_bwd"])
+    got = _scan_grads(r, k, v, logw, u, do, True)
+    torch.cuda.synchronize()
+    assert kernels.VARIANT_LAUNCHES["rwkv6_scan_bwd"] == {**before, f"n{n}": before[f"n{n}"] + 1}
+    want = _scan_grads(r, k, v, logw, u, do, False)
+    for name, gt, w, x in zip(("r", "k", "v", "logw", "u"), got, want, (r, k, v, logw, u)):
+        assert gt.dtype == x.dtype and gt.shape == x.shape
+        tol = SCAN_BWD_TOL[dtype if name in "rkv" else torch.float32]
+        assert _l2_rel(gt, w, do.double().norm().item()) <= tol, name
+
+
+def test_scan_backward_bf16_output_gradient_and_carried_state(card):
+    """A bf16 wkv output (its gradient arrives in bf16) from a carried
+    initial state that takes no gradient, over 3 chunks."""
+    r, k, v, logw, u, do = _scan_inputs(card, torch.float32, 2, 90, 2, 64, seed=5)
+    s0 = 0.1 * torch.randn(2, 2, 64, 64, generator=torch.Generator(device=card).manual_seed(6), device=card)
+    do = do.bfloat16()
+    got = _scan_grads(r, k, v, logw, u, do, True, state=s0)
+    want = _scan_grads(r, k, v, logw, u, do, False, state=s0)
+    for name, gt, w in zip(("r", "k", "v", "logw", "u"), got, want):
+        assert _l2_rel(gt, w) <= SCAN_BWD_TOL[torch.float32], name
+
+
+def test_scan_backward_is_deterministic(card):
+    r, k, v, logw, u, do = _scan_inputs(card, torch.bfloat16, 2, 200, 4, 64, seed=7)
+    a, b = _scan_grads(r, k, v, logw, u, do, True), _scan_grads(r, k, v, logw, u, do, True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_scan_function_refuses_state_gradients(card):
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
+
+    r, k, v, logw, u, _ = _scan_inputs(card, torch.float32, 1, 40, 2, 16, seed=8)
+    r.requires_grad_(True)
+    s0 = torch.zeros(1, 2, 16, 16, device=card, requires_grad=True)
+    with pytest.raises(ValueError, match="initial state"):
+        rwkv6_wkv(r, k, v, logw, u, state=s0, out_dtype=torch.float32)
+    out, s_fin = rwkv6_wkv(r, k, v, logw, u, out_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="final state"):
+        (out.sum() + s_fin.sum()).backward()
+
+
+def test_backward_kernels_raise_rather_than_fall_back(card, monkeypatch):
+    """A backward library that does not load propagates its error out of
+    loss.backward(): no plain gradient is computed in its place."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv6_scan import ops as scan_ops
+
+    def broken():
+        raise OSError("backward library missing")
+
+    monkeypatch.setattr(flash_ops, "_bwd_library", broken)
+    monkeypatch.setattr(scan_ops, "_bwd_library", broken)
+    q = torch.randn(1, 16, 2, 64, device=card, requires_grad=True)
+    with pytest.raises(OSError, match="backward library missing"):
+        flash_ops.flash_attention_bshd(q, q.detach(), q.detach()).sum().backward()
+    r, k, v, logw, u, _ = _scan_inputs(card, torch.float32, 1, 40, 2, 16, seed=10)
+    r.requires_grad_(True)
+    out, _ = scan_ops.rwkv6_wkv(r, k, v, logw, u, out_dtype=torch.float32)
+    with pytest.raises(OSError, match="backward library missing"):
+        out.sum().backward()
+
+
+def test_inference_forward_writes_no_lse(card):
+    """Without a gradient the forward runs without FlashAttention's saved
+    state: no autograd graph, one forward launch."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+
+    q = torch.randn(1, 64, 2, 64, device=card, requires_grad=True)
+    with torch.no_grad():
+        o = flash_attention_bshd(q, q, q)
+    assert o.grad_fn is None
+    o = flash_attention_bshd(q, q, q)
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+
+
+@pytest.mark.parametrize("arch", ["llama3_8b", "rwkv6_3b", "recurrentgemma_2b", "whisper_tiny"])
+def test_training_gradients_on_card_match_plain(card, arch):
+    """At smoke size in float32, the kernel path's loss and every gradient
+    against the plain path's (1e-4 per tensor), with the launches the
+    design implies: per checkpointed block, each forward kernel twice (the
+    forward and its recompute) and each backward kernel once; Whisper's
+    decoder is not rematerialised, as in the reference."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import loss_and_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).smoke()
+    params = models.init(cfg, torch.Generator(device=card).manual_seed(0), card)
+    g = torch.Generator(device=card).manual_seed(1)
+    s = cfg.local_window or 40  # recurrentgemma: S = W, so its attention is causal and takes flash
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, s), generator=g, device=card),
+             "labels": torch.randint(-1, cfg.vocab_size, (2, s), generator=g, device=card)}
+    if cfg.family == "audio":
+        batch["enc_embeds"] = torch.randn(2, cfg.enc_seq_len, cfg.d_model, generator=g, device=card)
+    kernels.reset_launches()
+    loss, got = loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    fwd, bwd = ("rwkv6_scan", "rwkv6_scan_bwd") if cfg.family == "ssm" else ("flash_attention", "flash_attention_bwd")
+    n = cfg.n_layers if cfg.family in ("ssm", "audio") else cfg.layer_kinds().count("attn")
+    remat = 1 if cfg.family == "audio" else 2
+    assert (kernels.LAUNCHES[fwd], kernels.LAUNCHES[bwd]) == (remat * n, n)
+    want_loss, want = loss_and_grads(cfg, params, batch, use_kernel=False)
+    assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    for k, w in want.items():
+        if w.norm() > 0:
+            assert _l2_rel(got[k], w) <= 1e-4, k
