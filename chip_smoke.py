@@ -25,7 +25,7 @@ Phases (any failure exits non-zero):
      there;
   5. LM kernels vs plain: flash attention (ragged S up to 8192, GQA, head
      dims 16-256, f32 and bf16, strict causality, also at D=256; flash_wgmma over S in
-     {1, 63, 128, 129, 1000, 2048, 8192}, D in {64, 128}, n_rep in {1, 4, 8},
+     {1, 63, 128, 129, 1000, 2048, 8192}, D in {64, 128, 160, 256}, n_rep in {1, 4, 8},
      B in {1, 3}) and the RWKV6 scan (ragged T, head dims 16 and 64,
      log-decay down to -exp(6), a carried state; log-decay -exp(6) for the
      first 16 or 4 steps of each chunk, then -1e-3, at head dims 16-64; every
@@ -44,9 +44,10 @@ Phases (any failure exits non-zero):
      versions (and scaled_dot_product_attention as a yardstick); the scan at
      B=1 as well, each with its bound from the split of its work between
      tensor cores, CUDA cores and bytes; flash's tolerance checked against
-     plain versions with a planted fault; flash_mma timed the same way at
-     pixtral_12b's (D=160) and recurrentgemma_2b's (D=256, one KV head)
-     attention shapes;
+     plain versions with a planted fault; flash at every phase 19 family's
+     attention shape as FAMILIES names it (flash_wgmma at pixtral_12b's
+     D=160 and recurrentgemma_2b's D=256, one KV head), with flash_mma forced
+     at those two shapes beside it as the yardstick;
   10. the planned pipeline, run_dmrg(algo="batched", jit_matvec=True) with
      the reference's defaults (planned batched SVD, fused environment
      updates; matvec and environment updates replayed as CUDA graphs per
@@ -139,9 +140,11 @@ Phases (any failure exits non-zero):
      make_train_step, B=2 x S=2048 of the synthetic data, AdamW: a warm-up
      step and 3 timed steps (seconds, tokens/s, peak memory, loss, grad
      norm, launches by variant, held to each forward kernel twice per
-     layer and each backward kernel once); each backward kernel timed
-     against its plain version (flash also against the backward of
-     scaled_dot_product_attention) with its bound; then
+     layer and each backward kernel once, flash's as the variants the
+     wrappers pick: flash_wgmma and bwd_wgmma); each backward kernel timed
+     against its plain version (flash's bwd_wgmma also against bwd_mma
+     forced and the backward of scaled_dot_product_attention) with its
+     bound; then
      launch/train.main --arch llama3_8b --layers 4 --steps 3;
   21. summary lines, then {"ok": true, "device": {...}} as the last line.
 Needs a CUDA card; exits non-zero without one, printing no result.
@@ -243,8 +246,8 @@ FAMILIES = {
     "qwen15_110b": dict(layers=8, f32_layers=4, seq=LM_SEQ, variant="flash_wgmma"),
     "qwen2_moe_a27b": dict(layers=None, f32_layers=12, seq=LM_SEQ, variant="flash_wgmma"),
     "moonshot_v1_16b_a3b": dict(layers=24, f32_layers=12, seq=LM_SEQ, variant="flash_wgmma"),
-    "pixtral_12b": dict(layers=None, f32_layers=24, seq=LM_SEQ, variant="flash_mma"),
-    "recurrentgemma_2b": dict(layers=None, f32_layers=None, seq=LM_SEQ, variant="flash_mma"),
+    "pixtral_12b": dict(layers=None, f32_layers=24, seq=LM_SEQ, variant="flash_wgmma"),
+    "recurrentgemma_2b": dict(layers=None, f32_layers=None, seq=LM_SEQ, variant="flash_wgmma"),
     "whisper_tiny": dict(layers=None, f32_layers=None, seq=448, variant="flash_wgmma"),
 }
 # Phase 20: training at full width in bf16, B x S of the synthetic data,
@@ -261,8 +264,8 @@ TRAIN_CLI = ["--arch", "llama3_8b", "--layers", "4", "--steps", "3"]
 # ||got - want|| / ||want||.  float32: the sums run in other orders (read
 # 2.0e-6 and 6.2e-7 on an H100).  bf16: each side rounds its gradients (and
 # the flash kernel its forward output, which its Delta reads) to bf16 once,
-# and flash's bwd_mma rounds P and dS to bf16 for its tensor-core products
-# (read 3.3e-3; the scan 5.6e-5).  Phase 20 checks that plain gradients with
+# and flash's bwd_wgmma and bwd_mma round P and dS to bf16 for their
+# tensor-core products (bwd_mma read 3.3e-3; the scan 5.6e-5).  Phase 20 checks that plain gradients with
 # a planted fault read above the float32 limits (1.0e-2 and more).
 BWD_TOL = {"flash_attention_bwd": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
            "rwkv6_scan_bwd": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
@@ -597,11 +600,12 @@ def lm_kernel_cases(dev):
         want, s_want = rwkv6_wkv(r, kk, vv, logw, u, state=s0, out_dtype=torch.float32, use_kernel=False)
         check("rwkv6_scan", torch.float32, f"split{split}", got, want, SCAN_TOL[torch.float32])
         check("rwkv6_scan", torch.float32, f"split{split} state", s_got, s_want, SCAN_TOL[torch.float32])
-    # flash_wgmma over its grid: 8 query heads, n_rep 1, 4, 8
+    # flash_wgmma over its grid: 8 query heads, n_rep 1, 4, 8; key tiles of
+    # 128 at D 64 and 128, of 64 at D 160 (three 64-column panels) and 256
     before = kernels.VARIANT_LAUNCHES["flash_attention"]["flash_wgmma"]
     n_cases = 0
     for s in (1, 63, 128, 129, 1000, 2048, 8192):
-        for d in (64, 128):
+        for d in (64, 128, 160, 256):
             for rep in (1, 4, 8):
                 for b in (1, 3):
                     q = torch.randn(b, s, 8, d, generator=g, device=dev).bfloat16()
@@ -826,8 +830,8 @@ def lm_kernel_timings(dev):
     # flash: llama3_8b's attention at B=4, S=2048: 32 query heads, 8 KV
     # heads, D=128, bf16 (flash_wgmma; with the planted-fault controls);
     # then the attention of every phase 19 family at its prefill's S, heads
-    # and head dim, as the variant FAMILIES names (flash_mma at pixtral_12b's
-    # D=160 and recurrentgemma_2b's D=256); families of one shape share a row
+    # and head dim, as the variant FAMILIES names (flash_wgmma at pixtral_12b's
+    # D=160 and recurrentgemma_2b's D=256 too); families of one shape share a row
     rows["flash_attention"] = flash_timing(dev, g, LM_BATCH, LM_SEQ, 32, 8, 128, controls=True)
     by_shape = {}
     for arch, spec in FAMILIES.items():
@@ -840,11 +844,12 @@ def lm_kernel_timings(dev):
         rows[key] = row = dict(archs=[arch], **flash_timing(dev, g, LM_BATCH, *shape, controls=False))
         if row["variant"] != spec["variant"]:
             fail(f"flash at {arch}'s attention {shape} launched {row['variant']}, not {spec['variant']}")
-    # what D=160 costs on the DMAX=256 instantiation: flash_mma forced at
-    # llama3_8b's D=128 (its own DMAX=128 instantiation), ms per operation
-    rows["flash_mma_d128"] = row = flash_timing(dev, g, LM_BATCH, LM_SEQ, 32, 8, 128, controls=False, kind="flash_mma")
-    pix = rows["flash_pixtral_12b"]
-    row["pixtral_ms_per_op_ratio"] = (pix["ms"] / pix["ops"]) / (row["ms"] / row["ops"])
+    # the yardstick at the two widest heads: flash_mma (mma.sync, its DMAX=256
+    # instantiation) forced at the shapes where the wrapper takes flash_wgmma
+    for arch in ("pixtral_12b", "recurrentgemma_2b"):
+        sh = rows[f"flash_{arch}"]["shape"]
+        rows[f"flash_mma_{arch}"] = flash_timing(dev, g, LM_BATCH, sh["S"], sh["H"], sh["Hkv"], sh["D"], controls=False,
+                                                 kind="flash_mma")
     # scan: rwkv6_3b's time-mix at T=2048, 40 heads of 64, r/k/v bf16, at
     # B=4 (the prefill's, in the kernels line) and B=1 (one request)
     for b, key in ((LM_BATCH, "rwkv6_scan"), (1, "rwkv6_scan_b1")):
@@ -1871,6 +1876,7 @@ def train_run(arch: str, dev, layers) -> dict:
     checkpointed block's recompute), each backward kernel once."""
     from repro_torch import kernels, models
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch.specs import make_train_step
     from repro_torch.train.data import SyntheticLM
     from repro_torch.train.optim import OptConfig, init_opt_state
@@ -1910,6 +1916,11 @@ def train_run(arch: str, dev, layers) -> dict:
         want = {fwd: 2 * n, bwd: n}
         if row["launches"] != want:
             fail(f"{arch} training step {i} launched {row['launches']}, not {want}")
+        if cfg.family != "ssm":  # bf16 flash: the variants the wrappers pick at this head dim
+            d = cfg.resolved_head_dim
+            want = {fwd: {flash_ops.variant(torch.bfloat16, d): 2 * n}, bwd: {flash_ops.bwd_variant(torch.bfloat16, d): n}}
+            if row["variants"] != want:
+                fail(f"{arch} training step {i} launched flash as {row['variants']}, not {want}")
     del params, opt
     torch.cuda.empty_cache()
     rec.update(wall_s=time.perf_counter() - t_start, launches=rec["steps"][-1]["launches"],
@@ -1944,16 +1955,19 @@ def backward_timings(dev) -> dict:
     sdpa_do = do.transpose(1, 2)
     fns = dict(ms=lambda: flash_ops._launch_bwd(q, k, v, o, lse, do),
                plain_ms=lambda: torch.autograd.grad(plain_o, leaves, do, retain_graph=True),
-               library_ms=lambda: torch.autograd.grad(sdpa_o, sdpa_in, sdpa_do, retain_graph=True))
+               library_ms=lambda: torch.autograd.grad(sdpa_o, sdpa_in, sdpa_do, retain_graph=True),
+               mma_ms=lambda: flash_ops._launch_bwd(q, k, v, o, lse, do, kind="bwd_mma"))
     got = fns["ms"]()
     want = fns["plain_ms"]()
     rel = grad_rel(dict(zip("qkv", got)), dict(zip("qkv", want)))[0]
+    mma_rel = grad_rel(dict(zip("qkv", fns["mma_ms"]())), dict(zip("qkv", want)))[0]
     ops = 2.5 * 4.0 * d * b * h * s * (s + 1) / 2
     nbytes = 2.0 * (3 * b * s * h * d + 4 * b * s * hkv * d) + 4.0 * b * h * s  # q, o, do, dq; k, v, dk, dv; lse
     rows["flash_attention_bwd"] = dict(
         shape=dict(B=b, S=s, H=h, Hkv=hkv, D=d, dtype="bfloat16"), variant=flash_ops.bwd_variant(torch.bfloat16, d),
         rel_l2=rel, max_abs_err=max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want)),
-        ops=ops, bytes=nbytes, **timed(fns, dict(ms=10, plain_ms=3, library_ms=10)), **bound(ops, 989e12, nbytes))
+        mma_rel_l2=mma_rel, ops=ops, bytes=nbytes, **timed(fns, dict(ms=10, plain_ms=3, library_ms=10, mma_ms=10)),
+        **bound(ops, 989e12, nbytes))
     del q, k, v, do, o, lse, leaves, plain_o, sdpa_in, sdpa_o, sdpa_do, fns, got, want
     torch.cuda.empty_cache()
 
@@ -1990,8 +2004,9 @@ def backward_timings(dev) -> dict:
     torch.cuda.empty_cache()
     for name, row in rows.items():
         log(f"  timing {name} " + json.dumps(row))
-        if not row["rel_l2"] <= BWD_TOL[name][torch.bfloat16]:
-            fail(f"{name} at the training shape: kernel vs plain rel L2 {row['rel_l2']:.3e}")
+        if not max(row["rel_l2"], row.get("mma_rel_l2", 0.0)) <= BWD_TOL[name][torch.bfloat16]:
+            fail(f"{name} at the training shape: kernel vs plain rel L2 {row['rel_l2']:.3e} "
+                 f"(bwd_mma {row.get('mma_rel_l2')})")
     return rows
 
 
@@ -2056,7 +2071,7 @@ def main():
         for line in lib.with_suffix(".log").read_text().splitlines():
             found = re.search(r"Compiling entry function '\w*?\d(flash_simple|flash_mma|flash_wgmma|tiled_dmma|tiled_fma|"
                               r"skinny|second_pass|rwkv6_chunk_kernel|rwkv6_state_kernel|flash_bwd_dq_mma|flash_bwd_dkdv_mma|"
-                              r"flash_bwd_dq|flash_bwd_dkdv|"
+                              r"flash_bwd_dq_wgmma|flash_bwd_dkdv_wgmma|flash_bwd_delta|flash_bwd_dq|flash_bwd_dkdv|"
                               r"rwkv6_bwd_state|rwkv6_bwd_dv)(?:I(\w*?)E+v)?", line)
             if found:
                 targs = re.sub(r"Li(\d+)E?", r",\1", found.group(2) or "").replace("13__nv_bfloat16", "bf16").strip(",")
@@ -2311,12 +2326,14 @@ def main():
             f"limit {TRAIN_GRAD_TOL})")
     for name, row in trained["timings"].items():
         lib = f", sdpa backward {row['library_ms']:.4f}" if row["library_ms"] is not None else ""
+        lib += f", bwd_mma forced {row['mma_ms']:.4f}" if "mma_ms" in row else ""
         log(f"{name} at {row['shape']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.3f}{lib}, bound {row['bound_ms']:.4f} "
             f"by {row['bound_by']}), rel L2 {row['rel_l2']:.2e}")
     log(f"phase 20: {trained['wall_s']:.1f} s")
-    r = timing["flash_mma_d128"]
-    log(f"flash_mma at D=128: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}); pixtral's D=160 on DMAX=256 takes "
-        f"{r['pixtral_ms_per_op_ratio']:.2f}x its time per operation")
+    for arch in ("pixtral_12b", "recurrentgemma_2b"):
+        r, w = timing[f"flash_mma_{arch}"], timing[f"flash_{arch}"]
+        log(f"flash_mma forced at {arch}'s attention: {r['ms']:.4f} ms against {w['variant']}'s {w['ms']:.4f} "
+            f"({r['ms'] / w['ms']:.2f}x), per-row rel err {r['rel_err']:.2e}")
     small, sw = planned["small"], planned["sweeps"]
     log(f"planned pipeline: 3x2 |dE_ED|={abs(small['energy'] - small['e_ed']):.2e}; 8x4 {planned['wall_s']:.1f} s "
         f"(csr {record['full_size']['wall_s']:.1f} s), sweeps {[round(r['seconds'], 2) for r in sw]} s, SVD "

@@ -1,4 +1,4 @@
-"""Time a tree's RWKV6 scan kernel at rwkv6_3b's time-mix shapes (and, with --flash, its flash forward).
+"""Time a tree's RWKV6 scan kernel at rwkv6_3b's time-mix shapes (and, with --flash, its flash attention).
 
     python scripts/time_scan.py [--src src] [--batch 4 1] [--split 4] [--flash] [--out chiprun_out/time_scan.json]
 
@@ -15,9 +15,13 @@ the card, one process each.  ``--split`` forces the state kernel's CTAs
 per head (1, 2 or 4) in place of the wrapper's pick, for trees that have
 the split variants.  ``--flash`` also times the flash-attention forward
 as inference calls it (no gradient), causal, B=4, S=2048, bf16, at
-llama3_8b's attention (32 query heads, 8 KV heads, D=128: ``flash_wgmma``)
-and pixtral_12b's (32/8, D=160: ``flash_mma``), with its per-row error
-against the plain version and the variant it launched.  Needs a CUDA card.
+llama3_8b's attention (32 query heads, 8 KV heads, D=128), the same heads
+at D=64, pixtral_12b's (32/8, D=160) and recurrentgemma_2b's (10/1,
+D=256), with its per-row error against the plain version and the variant
+the tree launched; then the flash backward kernel alone (``_launch_bwd`` on
+the forward's output and lse) at llama3_8b's training shape (B=2, S=2048,
+32/8 heads, D=128), with its per-tensor error against autograd through the
+plain version and the variant the tree launched.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -42,7 +46,9 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-FLASH_SHAPES = (("llama3_8b", 32, 8, 128), ("pixtral_12b", 32, 8, 160))  # (label, H, Hkv, D)
+# (label, H, Hkv, D)
+FLASH_SHAPES = (("llama3_8b", 32, 8, 128), ("d64", 32, 8, 64), ("pixtral_12b", 32, 8, 160),
+                ("recurrentgemma_2b", 10, 1, 256))
 
 
 def flash_rows(dev):
@@ -65,6 +71,33 @@ def flash_rows(dev):
             runs = [time_ms(fn), time_ms(fn)]
         yield dict(kernel="flash_attention", shape=label, B=b, S=s, H=h, Hkv=hkv, D=d, variant=launched, ms=min(runs),
                    runs=runs, row_rel_err=((gw - ww).norm(dim=1) / ww.norm(dim=1).clamp_min(1e-300)).max().item())
+        del q, k, v, got, want, gw, ww
+    yield flash_bwd_row(dev)
+
+
+def flash_bwd_row(dev):
+    """The backward kernel alone at llama3_8b's training shape."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops
+
+    b, s, h, hkv, d = 2, 2048, 32, 8, 128
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device=dev).bfloat16() for _ in range(2))
+    do = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+    o, lse = ops._launch(q, k, v, with_lse=True)
+    fn = lambda: ops._launch_bwd(q, k, v, o, lse, do)
+    before = dict(kernels.VARIANT_LAUNCHES["flash_attention_bwd"])
+    got = fn()
+    torch.cuda.synchronize()
+    launched = [name for name, c in kernels.VARIANT_LAUNCHES["flash_attention_bwd"].items() if c != before[name]]
+    leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
+    want = torch.autograd.grad(ops.flash_attention_bshd(*leaves, use_kernel=False), leaves, do)
+    rel = max(((x.double() - y.double()).norm() / y.double().norm()).item() for x, y in zip(got, want))
+    del leaves, want
+    runs = [time_ms(fn, 10), time_ms(fn, 10)]
+    return dict(kernel="flash_attention_bwd", shape="llama3_8b_train", B=b, S=s, H=h, Hkv=hkv, D=d,
+                variant=launched, ms=min(runs), runs=runs, rel_l2=rel)
 
 
 def main():

@@ -2,9 +2,10 @@
 
 Each ``.cu`` source exposes a plain C interface (no PyTorch headers), so it
 is compiled by one ``nvcc`` call.  Libraries go to ``build/torch_ext/`` at
-the root of the checkout, named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused; nvcc's and ptxas'
-output (registers, spills) is written beside each library as ``.log``.
+the root of the checkout, named by a hash of the source, the headers beside
+it (``*.cuh``, which it may include) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused; nvcc's and ptxas' output
+(registers, spills) is written beside each library as ``.log``.
 Nothing is built when a module is imported: the first launch of a kernel
 builds it.
 """
@@ -38,7 +39,8 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
 
 

@@ -28,36 +28,46 @@
 //
 // Three kernels, longest query tiles (most keys) launched first; the
 // launcher picks one by dtype and D before any launch:
-//   flash_wgmma   bfloat16 with D in {64, 128} (the model's path: llama3_8b
-//                 has D = 128).  One CTA per (128-query tile, batch * head)
-//                 of three warpgroups.  A producer warpgroup, of which one
-//                 thread issues TMA and the rest give up their registers
-//                 (setmaxnreg), loads the Q tile once and K and V tiles of
-//                 128 keys into a two-stage ring, each stage with full and
-//                 empty mbarriers; TMA's out-of-bounds zero fill covers a
-//                 ragged S.  Two consumer warpgroups of 64 query rows each compute
-//                 S = Q K^T with wgmma m64n128k16 (both operands K-major in
-//                 shared memory, 128-byte swizzle), the online softmax in
-//                 registers, and O += P V with wgmma m64nDk16
-//                 taking P from registers (the f32 accumulator fragment
-//                 rounded to bf16 pairs is the register-A fragment) and V,
-//                 stored [keys, D], as an MN-major B operand (transpose bit).
-//                 Only the diagonal key tile is masked.
-//   flash_mma     other bfloat16 with D % 16 == 0: 4 warps, 16 query rows
-//                 each, mma.sync m16n8k16 bf16 -> f32 for q k^T and p v; q, k
-//                 and v tiles staged row-major in shared memory by plain
-//                 loads, 64 keys per tile, v's fragments read transposed by
-//                 ldmatrix; p rounded to bf16 for p v.
+//   flash_wgmma   bfloat16 with D in {64, 128, 160, 256} (the models' path:
+//                 llama3_8b has D = 128, pixtral_12b 160, recurrentgemma_2b
+//                 256).  One CTA per (128-query tile, batch * head) of three
+//                 warpgroups.  A producer warpgroup, of which one thread
+//                 issues TMA and the rest give up their registers
+//                 (setmaxnreg), loads the Q tile once and K and V tiles of BK
+//                 keys into a two-stage ring, each stage with full and empty
+//                 mbarriers; TMA's out-of-bounds zero fill covers a ragged S
+//                 and, at D = 160, the columns 160-191 of the third 64-column
+//                 panel.  Two consumer warpgroups of 64 query rows each
+//                 compute S = Q K^T with wgmma m64nBKk16 (both operands
+//                 K-major in shared memory, 128-byte swizzle), the online
+//                 softmax in registers, and O += P V with wgmma (N = D
+//                 rounded up to whole panels: one instruction up to 128,
+//                 then two) taking P from registers (the f32 accumulator
+//                 fragment rounded to bf16 pairs is the register-A fragment)
+//                 and V, stored [keys, D], as an MN-major B operand
+//                 (transpose bit).  BK = 128 at D <= 128; BK = 64 above, so
+//                 that Q, two K/V stages (192 KB at D = 256) and O, S and P
+//                 (128 + 32 + 16 registers a thread) fit.  Only each
+//                 warpgroup's last key tile is masked: at BK = 64 that is
+//                 tile 2 qt + c for warpgroup c, and warpgroup 0 releases
+//                 the tile after it unread.
+//   flash_mma     other bfloat16 with D % 16 == 0 (and any of those D when
+//                 forced): 4 warps, 16 query rows each, mma.sync m16n8k16
+//                 bf16 -> f32 for q k^T and p v; q, k and v tiles staged
+//                 row-major in shared memory by plain loads, 64 keys per
+//                 tile, v's fragments read transposed by ldmatrix; p rounded
+//                 to bf16 for p v.
 //   flash_simple  float32 (and bf16 with other D): the same algorithm on
 //                 the CUDA cores in float32, 32 keys per tile, a 4 x 2
 //                 score micro-tile per thread.
-#include <cuda.h>  // CUtensorMap and its enums only: nothing is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 #include <initializer_list>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -226,40 +236,6 @@ template <int DMAX>
 constexpr size_t mma_smem() {
   return sizeof(__nv_bfloat16) *
          (M_BQ + 2 * M_BK) * (DMAX + 8);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Four 8x8 bf16 tiles from shared memory, transposed: lanes 8i .. 8i+7 give
-// the row addresses of tile i, and each lane receives, of tile i, the
-// elements (2t, g) and (2t+1, g) in r[i] -- the B fragment of mma.m16n8k16
-// for a row-major [k][n] operand.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const __nv_bfloat16* row) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
 }
 
 template <int DMAX>
@@ -435,147 +411,37 @@ __global__ void __launch_bounds__(M_THREADS)
 
 // ------------------------------------------------------------- flash_wgmma
 constexpr int W_BQ = 128;     // query rows per CTA: two consumer warpgroups of 64
-constexpr int W_BK = 128;     // keys per K/V tile
 constexpr int W_STAGES = 2;   // K/V ring depth
 constexpr int W_THREADS = 384;
 constexpr int W_PANEL = 128 * 128;  // bytes of one 64-column panel of a 128-row tile
 
+// The tiles of one head dim D: DP = D rounded up to whole 64-column panels
+// (160 -> 192; TMA zero-fills the columns past D), BK keys per K/V tile (128
+// up to D = 128; 64 above, so that Q, two K/V stages and the accumulators
+// fit: at D = 256, 64 + 2 x (32 + 32) KB of shared memory and 128 + 32 + 16
+// registers of O, S and P a consumer thread).
+template <int D>
+struct WgmmaTile {
+  static constexpr int DP = (D + 63) / 64 * 64;
+  static constexpr int PANELS = DP / 64;
+  static constexpr int BK = D <= 128 ? 128 : 64;
+  static constexpr int KV_PANEL = BK * 128;  // bytes of one 64-column panel of a K/V tile
+};
+
 // Shared memory, as byte offsets from a 1024-byte aligned base (the 128-byte
-// swizzle repeats every 1024 bytes).  A [128, D] tile is D / 64 panels of
-// [128 rows][64 bf16], each as TMA writes it with the 128-byte swizzle.
+// swizzle repeats every 1024 bytes).  A [rows, DP] tile is DP / 64 panels of
+// [rows][64 bf16], each as TMA writes it with the 128-byte swizzle.
 template <int D>
 struct WgmmaSmem {
-  static constexpr int TILE = 128 * D * 2;
+  using T = WgmmaTile<D>;
+  static constexpr int Q_TILE = W_BQ * T::DP * 2;
+  static constexpr int TILE = T::BK * T::DP * 2;  // one K or V tile
   static constexpr int Q = 0;
-  static constexpr int K = Q + TILE;
+  static constexpr int K = Q + Q_TILE;
   static constexpr int V = K + W_STAGES * TILE;
   static constexpr int BAR = V + W_STAGES * TILE;  // q_full, then per stage k_full, v_full, k_empty, v_empty
   static constexpr int BYTES = BAR + 8 * (1 + 4 * W_STAGES) + 1024;  // + alignment slack
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-// One box of a 4-D tensor map (coordinates innermost first) into shared
-// memory, completing `bytes` on the mbarrier.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                            int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (in 16-byte units), layout type 1 at bit 62.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-// Keeps registers that an in-flight wgmma reads or writes live and in place
-// until this point (after the wait).
-template <int N>
-__device__ __forceinline__ void hold(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void hold(uint32_t (&d)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
-}
-
-// D = A B over k16, f32 accumulators in the m64nN fragment: thread t of the
-// warpgroup holds, for each 8-column block j, (row 16 (t/32) + (t%32)/4,
-// columns 8j + 2 (t%4) + {0, 1}) in d[4j], d[4j+1] and the row 8 below in
-// d[4j+2], d[4j+3].  _ss: A and B from shared memory, both K-major;
-// _rs_tb: A from registers, B MN-major (transposed).
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_tb_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_tb_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 
 // LSE: the training instantiation writes the row log-sum-exp; inference
 // takes the one without it, so the store costs inference nothing.
@@ -585,8 +451,9 @@ __global__ void __launch_bounds__(W_THREADS, 1)
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                 float* __restrict__ lse, int S, int H, int Hkv, float scale) {
   using L = WgmmaSmem<D>;
-  constexpr int PANELS = D / 64;
-  constexpr uint32_t TILE_BYTES = L::TILE;
+  using T = WgmmaTile<D>;
+  constexpr int PANELS = T::PANELS, BK = T::BK, KV_PANEL = T::KV_PANEL;
+  constexpr uint32_t Q_BYTES = L::Q_TILE, TILE_BYTES = L::TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + L::BAR;
@@ -601,7 +468,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
-  const int nkt = qt + 1;  // key tiles 0 .. qt reach the causal frontier
+  // key tiles that reach the causal frontier (at BK = 64, none wholly past S)
+  const int nkt = BK == W_BQ ? qt + 1 : min(2 * (qt + 1), (S + BK - 1) / BK);
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
   if (threadIdx.x == 0) {
@@ -620,7 +488,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     // ---- producer: one thread issues every TMA load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == 0) {
-      mbar_expect_tx(bar_q, TILE_BYTES);
+      mbar_expect_tx(bar_q, Q_BYTES);
 #pragma unroll
       for (int p = 0; p < PANELS; ++p) tma_load_4d(base + L::Q + p * W_PANEL, &tq, bar_q, 64 * p, h, q0, b);
       for (int it = 0; it < nkt; ++it) {
@@ -629,12 +497,12 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         mbar_expect_tx(k_full(s), TILE_BYTES);
 #pragma unroll
         for (int p = 0; p < PANELS; ++p)
-          tma_load_4d(base + L::K + s * L::TILE + p * W_PANEL, &tk, k_full(s), 64 * p, hk, it * W_BK, b);
+          tma_load_4d(base + L::K + s * L::TILE + p * KV_PANEL, &tk, k_full(s), 64 * p, hk, it * BK, b);
         if (use > 0) mbar_wait(v_empty(s), (use - 1) & 1);
         mbar_expect_tx(v_full(s), TILE_BYTES);
 #pragma unroll
         for (int p = 0; p < PANELS; ++p)
-          tma_load_4d(base + L::V + s * L::TILE + p * W_PANEL, &tv, v_full(s), 64 * p, hk, it * W_BK, b);
+          tma_load_4d(base + L::V + s * L::TILE + p * KV_PANEL, &tv, v_full(s), 64 * p, hk, it * BK, b);
       }
     }
   } else {
@@ -644,14 +512,18 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
     const int row_lo = q0 + 64 * c + 16 * warp + g, row_hi = row_lo + 8;
     const uint32_t qb = base + L::Q + c * 64 * 128;
+    // the key tiles this warpgroup reads: at BK = 64 its rows end on tile
+    // 2 qt + c, and the tile after it (warpgroup 0's last) lies wholly past
+    // them, so it is released unread; the last tile read is the only masked one
+    const int own = BK == W_BQ ? nkt : min(2 * qt + c + 1, nkt);
     float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
-    float oacc[D / 2];
+    float oacc[T::DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < T::DP / 2; ++i) oacc[i] = 0.f;
 
-    // S = Q K^T of key tile `it`: 64 rows x 128 keys, k16 steps over D (4
-    // per panel)
-    float sc[64];
+    // S = Q K^T of key tile `it`: 64 rows x BK keys, k16 steps over D (4
+    // per panel; at D = 160 the zero-filled columns 160-191 are skipped)
+    float sc[BK / 2];
     const auto issue_qk = [&](int it) {
       const int s = it % W_STAGES;
       const uint32_t kb = base + L::K + s * L::TILE;
@@ -659,39 +531,53 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * W_PANEL + (kk % 4) * 32;
-        wgmma_ss_n128(sc, sw128_desc(qb + off, 16, 1024), sw128_desc(kb + off, 16, 1024), kk > 0);
+        const uint64_t da = sw128_desc(qb + (kk / 4) * W_PANEL + (kk % 4) * 32, 16, 1024);
+        const uint64_t db = sw128_desc(kb + (kk / 4) * KV_PANEL + (kk % 4) * 32, 16, 1024);
+        if constexpr (BK == 128)
+          wgmma_ss_n128(sc, da, db, kk > 0);
+        else
+          wgmma_ss_n64(sc, da, db, kk > 0);
       }
       wg_commit();
     };
     // O += P V of key tile `it`: the score fragment of keys 16 kk .. 16 kk + 15,
     // rounded to bf16 pairs, is the register-A fragment of k16 step kk; V is
     // an MN-major B, 8-key groups 1024 bytes apart (SBO), 64-column panels
-    // W_PANEL apart (LBO), a k16 step 16 rows of 128 bytes
-    uint32_t pa[8][4];
+    // KV_PANEL apart (LBO), a k16 step 16 rows of 128 bytes.  N = DP: one
+    // wgmma up to 128 columns; above, n128 on panels 0-1 and n128 (DP = 256)
+    // or n64 (DP = 192) on the rest
+    uint32_t pa[BK / 16][4];
     const auto issue_pv = [&](int it) {
       const int s = it % W_STAGES;
       const uint32_t vb = base + L::V + s * L::TILE;
       mbar_wait(v_full(s), (it / W_STAGES) & 1);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint64_t db = sw128_desc(vb + kk * 16 * 128, W_PANEL, 1024);
-        if constexpr (D == 128)
-          wgmma_rs_tb_n128(oacc, pa[kk], db);
-        else
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db = sw128_desc(vb + kk * 16 * 128, KV_PANEL, 1024);
+        if constexpr (T::DP == 64) {
           wgmma_rs_tb_n64(oacc, pa[kk], db);
+        } else if constexpr (T::DP == 128) {
+          wgmma_rs_tb_n128(oacc, pa[kk], db);
+        } else {
+          const uint64_t db2 = sw128_desc(vb + 2 * KV_PANEL + kk * 16 * 128, KV_PANEL, 1024);
+          wgmma_rs_tb_n128(*reinterpret_cast<float(*)[64]>(oacc), pa[kk], db);
+          if constexpr (T::DP == 256)
+            wgmma_rs_tb_n128(*reinterpret_cast<float(*)[64]>(oacc + 64), pa[kk], db2);
+          else
+            wgmma_rs_tb_n64(*reinterpret_cast<float(*)[32]>(oacc + 64), pa[kk], db2);
+        }
       }
       wg_commit();
     };
-    // the online softmax of tile `it` in sc (masked on the diagonal tile
-    // only): updates m and l, leaves p in sc, returns the rescale factors
+    // the online softmax of tile `it` in sc (masked on the warpgroup's last
+    // tile only): updates m and l, leaves p in sc, returns the rescale factors
     const auto softmax = [&](int it, float& al_lo, float& al_hi) {
-      const int k0 = it * W_BK;
-      const bool diag = it == nkt - 1;
+      const int k0 = it * BK;
+      const bool diag = it == own - 1;
       float mx_lo = NEG_INF, mx_hi = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kpos = k0 + 8 * j + 2 * t4 + e;
@@ -716,7 +602,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       al_hi = __expf(m_hi - mn_hi);
       float rs_lo = 0.f, rs_hi = 0.f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           sc[4 * j + e] = __expf(sc[4 * j + e] - mn_lo);
@@ -738,14 +624,14 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     // rescale O by the tile's factors and round its p into the A fragments
     const auto rescale_and_pack = [&](float al_lo, float al_hi) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < T::DP / 8; ++j) {
         oacc[4 * j] *= al_lo;
         oacc[4 * j + 1] *= al_lo;
         oacc[4 * j + 2] *= al_hi;
         oacc[4 * j + 3] *= al_hi;
       }
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < BK / 16; ++kk) {
         pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
         pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
         pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
@@ -755,8 +641,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
 
     mbar_wait(bar_q, 0);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
-    for (int it = 0; it < nkt; ++it) {
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    for (int it = 0; it < own; ++it) {
       float al_lo, al_hi;
       issue_qk(it);
       wg_wait0();
@@ -769,6 +655,17 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       hold(oacc);
       hold(pa);
       mbar_arrive(v_empty(it % W_STAGES));
+    }
+    if constexpr (BK != W_BQ) {
+      // a tile past this warpgroup's rows: waited for (so that its stage's
+      // previous use is released by both warpgroups first) and released
+      for (int it = own; it < nkt; ++it) {
+        const int s = it % W_STAGES, parity = (it / W_STAGES) & 1;
+        mbar_wait(k_full(s), parity);
+        mbar_arrive(k_empty(s));
+        mbar_wait(v_full(s), parity);
+        mbar_arrive(v_empty(s));
+      }
     }
 
     const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
@@ -794,54 +691,13 @@ __global__ void __launch_bounds__(W_THREADS, 1)
 }
 
 // ------------------------------------------------------------ host helpers
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library links nothing beyond the runtime.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// [B, S, heads, D] bf16 as a 4-D map (innermost first), boxes of 64 bf16
-// (128 bytes) x 1 head x 128 rows x 1 batch with the 128-byte swizzle; rows
-// past S read as zeros.
-int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(heads) * D * 2,
-                                 static_cast<cuuint64_t>(S) * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, 128, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <int D, bool LSE>
 int launch_wgmma(int B, int S, int H, int Hkv, cudaStream_t stream, const void* q, const void* k,
                  const void* v, void* o, float* lse, float scale) {
   CUtensorMap tq, tk, tv;
-  int err = encode_bshd(&tq, q, B, S, H, D);
-  if (err == 0) err = encode_bshd(&tk, k, B, S, Hkv, D);
-  if (err == 0) err = encode_bshd(&tv, v, B, S, Hkv, D);
+  int err = encode_bshd(&tq, q, B, S, H, D, W_BQ);
+  if (err == 0) err = encode_bshd(&tk, k, B, S, Hkv, D, WgmmaTile<D>::BK);
+  if (err == 0) err = encode_bshd(&tv, v, B, S, Hkv, D, WgmmaTile<D>::BK);
   if (err != 0) return err;
   constexpr size_t smem = WgmmaSmem<D>::BYTES;
   const cudaError_t e = cudaFuncSetAttribute(flash_wgmma<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -896,8 +752,8 @@ int dispatch_simple(dim3 grid, cudaStream_t s, const void* q, const void* k,
 }  // namespace
 
 // dtype: 1 = float32, 2 = bfloat16.  variant: 0 = flash_simple, 1 =
-// flash_mma, 2 = flash_wgmma, chosen by the caller before the launch; one
-// that does not take (dtype, D) is refused.  flash_wgmma also needs q, k, v
+// flash_mma, 2 = flash_wgmma (D in {64, 128, 160, 256}), chosen by the
+// caller before the launch; one that does not take (dtype, D) is refused.  flash_wgmma also needs q, k, v
 // 16-byte aligned (TMA).  lse: float32 [B, H, S] written when not null
 // (training), null in inference.  Returns a cudaError_t: 0 when the launch
 // was accepted.  Does not synchronise.
@@ -929,9 +785,13 @@ extern "C" int flash_attention_launch(int dtype, int variant, const void* q, con
     if (lse != nullptr) {
       if (D == 64) return launch_wgmma<64, true>(B, S, H, Hkv, s, q, k, v, o, lse, scale);
       if (D == 128) return launch_wgmma<128, true>(B, S, H, Hkv, s, q, k, v, o, lse, scale);
+      if (D == 160) return launch_wgmma<160, true>(B, S, H, Hkv, s, q, k, v, o, lse, scale);
+      if (D == 256) return launch_wgmma<256, true>(B, S, H, Hkv, s, q, k, v, o, lse, scale);
     } else {
       if (D == 64) return launch_wgmma<64, false>(B, S, H, Hkv, s, q, k, v, o, lse, scale);
       if (D == 128) return launch_wgmma<128, false>(B, S, H, Hkv, s, q, k, v, o, lse, scale);
+      if (D == 160) return launch_wgmma<160, false>(B, S, H, Hkv, s, q, k, v, o, lse, scale);
+      if (D == 256) return launch_wgmma<256, false>(B, S, H, Hkv, s, q, k, v, o, lse, scale);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -18,20 +18,34 @@
 // the same gradients that the reference's autodiff does (FlashAttention-2's
 // backward, arXiv:2307.08691, Algorithm 2).
 //
-// Two kernels, launched in order on one stream:
-//   dQ     one CTA per (64-query tile, batch * head): Delta of its rows
-//          (written for the next kernel), then a loop over the key tiles up
-//          to the diagonal, accumulating dQ.
-//   dK/dV  one CTA per (64-key tile, batch * KV head): a loop over the query
+// The kernels of each variant, launched in order on one stream:
+//   dQ     one CTA per (query tile, batch * head): a loop over the key tiles
+//          up to the diagonal, accumulating dQ.
+//   dK/dV  one CTA per (key tile, batch * KV head): a loop over the query
 //          heads of its group and, for each, over the query tiles from the
 //          diagonal on, accumulating dK and dV.  The GQA sum is inside the
 //          CTA: no atomics, deterministic.
-// Both recompute P from lse, accumulate in float32 registers, mask causally
-// and past a ragged S, and write their gradients in the inputs' type.  Two
-// variants, picked by the caller from the dtype, D and alignment:
-//   bwd_mma     bfloat16, D % 16 == 0, D <= 128 (the models' training path):
-//               the five products on mma.sync (tensor cores), 4 warps of 16
-//               rows, loop tiles of 64.
+// Delta_i is written by the dQ kernel (bwd_simple, bwd_mma) or by a kernel
+// of its own before them (bwd_wgmma).  Every kernel recomputes P from lse,
+// accumulates in float32 registers, masks causally and past a ragged S, and
+// writes its gradients in the inputs' type.  Three variants, picked by the
+// caller from the dtype and D:
+//   bwd_wgmma   bfloat16, D in {64, 128} (the models' training path): Delta
+//               by one warp per row in 16-byte loads; dQ (128-query tiles)
+//               and dK/dV (128-key tiles) as flash_attention.cu's
+//               flash_wgmma is built: a producer warpgroup streams 64-row
+//               tiles of the other side by TMA into a two-stage mbarrier
+//               ring, two consumer warpgroups of 64 own rows run the seven
+//               products on wgmma (S, dP in dQ and S^T, dP^T in dK/dV with
+//               both operands K-major in shared memory; dQ += dS K, dV +=
+//               P^T dO, dK += dS^T Q with P and dS rounded to bf16 as the
+//               register-A fragment and K, dO, Q as MN-major B operands).
+//               lse and Delta vary along the columns of S^T: each consumer
+//               warpgroup copies the tile's 128 values to shared memory and
+//               meets at a named barrier.
+//   bwd_mma     other bfloat16 with D % 16 == 0, D <= 128: the five products
+//               on mma.sync (tensor cores), 4 warps of 16 rows, loop tiles of
+//               64 staged through registers.
 //   bwd_simple  float32 and the rest (D up to 256): the products in float32
 //               on the CUDA cores (flash_simple's 16 x 16 thread grid with
 //               micro-tiles in registers); loop tiles of 32 rows, own tiles
@@ -40,14 +54,17 @@
 //
 // Bound: 2.5 times the forward's matrix operations (five products of the
 // causal pairs instead of two), which at training shapes (S = 2048, D = 128)
-// is far above the bytes: the tensor cores bound it.  Neither variant
-// pipelines its loads or uses wgmma yet.
+// is far above the bytes: the tensor cores bound it.  bwd_wgmma computes
+// seven (S and dP once in each of dQ and dK/dV), trading two products for
+// the atomics or second pass that a dQ summed inside the dK/dV CTA needs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 #include <initializer_list>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -328,31 +345,6 @@ constexpr size_t mma_smem() {  // four [64][DMAX + 8] bf16 tiles, then lse and D
   return sizeof(__nv_bfloat16) * 4 * M_ROWS * (DMAX + 8) + sizeof(float) * 2 * M_ROWS;
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// Four transposed 8x8 tiles: the B fragments of n-tiles j and j + 1 for a
-// row-major [k][n] operand, lanes 0-15 addressing rows of tile j, 16-31 of j + 1.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const __nv_bfloat16* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // Rows [r0, r0 + 64) of a [S, stride] bf16 operand into shared rows of QS
 // elements, 16 bytes a thread (zeros past S).
 template <int QS>
@@ -601,6 +593,424 @@ int launch_mma(int B, int S, int H, int Hkv, int D, float scale, cudaStream_t st
   return static_cast<int>(cudaGetLastError());
 }
 
+// -------------------------------------------------------------- bwd_wgmma
+// bfloat16 with D in {64, 128}: flash_attention.cu's flash_wgmma design
+// (TMA into a two-stage mbarrier ring, warp-specialised wgmma) applied to
+// the backward, as three kernels on one stream: Delta, dQ, then dK/dV.
+// Each of dQ and dK/dV runs one CTA of three warpgroups per 128-row tile
+// that it owns (queries in dQ, keys in dK/dV): a producer warpgroup whose
+// one thread loads the owned tiles once and streams 64-row tiles of the
+// other side, and two consumer warpgroups of 64 owned rows each.  Every
+// product is an m64n64k16 wgmma with both operands K-major in shared
+// memory (scores) or an m64nDk16 with the register-A fragment and an
+// MN-major B (gradients); P and dS are rounded to bf16 pairs for the
+// latter.
+constexpr int G_THREADS = 384;
+constexpr int G_STAGES = 2;
+constexpr int G_OWN = 128;   // rows of the CTA's own tile
+constexpr int G_LOOP = 64;   // rows of a streamed tile
+constexpr int G_OWN_PANEL = G_OWN * 128;    // bytes of one 64-column panel of an owned tile
+constexpr int G_LOOP_PANEL = G_LOOP * 128;  // ... of a streamed tile
+
+// Shared memory, byte offsets from a 1024-byte aligned base: the two owned
+// tiles (K, V in dK/dV; Q, dO in dQ), the stages of the two streamed tiles
+// (Q, dO; K, V), the lse and Delta rows of the streamed queries (dK/dV: per
+// consumer warpgroup, double-buffered), then the mbarriers (owned tiles
+// full, per stage full, per stage empty).
+template <int D>
+struct BwdSmem {
+  static constexpr int OWN = G_OWN * D * 2;
+  static constexpr int LOOP = G_LOOP * D * 2;
+  static constexpr int A = 0;
+  static constexpr int B = A + OWN;
+  static constexpr int X = B + OWN;
+  static constexpr int Y = X + G_STAGES * LOOP;
+  static constexpr int ROWS = Y + G_STAGES * LOOP;
+  static constexpr int BAR = ROWS + 2 * 2 * 2 * G_LOOP * 4;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * G_STAGES) + 1024;  // + alignment slack
+};
+
+// acc[64 rows x 64 cols] = A B^T over D: A 64 rows of an owned tile (panels
+// of G_OWN_PANEL bytes), B a streamed tile (panels of G_LOOP_PANEL), both
+// K-major; issued, not waited for
+template <int D>
+__device__ __forceinline__ void wgmma_scores(float (&acc)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(acc, sw128_desc(a + (kk / 4) * G_OWN_PANEL + (kk % 4) * 32, 16, 1024),
+                 sw128_desc(b + (kk / 4) * G_LOOP_PANEL + (kk % 4) * 32, 16, 1024), kk > 0);
+}
+
+// acc[64 rows x D] += X Y: X the 64 x 64 register-A fragments (k16 step kk
+// in x[kk]), Y a streamed [64, D] tile read as an MN-major B (8-row groups
+// 1024 bytes apart, panels G_LOOP_PANEL apart); issued, not waited for
+template <int D>
+__device__ __forceinline__ void wgmma_grad(float (&acc)[D / 2], const uint32_t (&x)[4][4], uint32_t y) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = sw128_desc(y + kk * 16 * 128, G_LOOP_PANEL, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_tb_n128(acc, x[kk], db);
+    else
+      wgmma_rs_tb_n64(acc, x[kk], db);
+  }
+}
+
+// Delta[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d]: one warp per (b, s, h)
+// row of the [B, S, H, D] layout, 16 bytes a lane, a shuffle sum.
+__global__ void __launch_bounds__(256)
+    flash_bwd_delta(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                    float* __restrict__ delta, int S, int H, int D, long long rows) {
+  const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;  // the whole warp
+  const __nv_bfloat16* a = o + row * D;
+  const __nv_bfloat16* d = dout + row * D;
+  float part = 0.f;
+  for (int c = 8 * lane; c < D; c += 256) {
+    const uint4 x = *reinterpret_cast<const uint4*>(a + c), y = *reinterpret_cast<const uint4*>(d + c);
+    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 xf = __bfloat1622float2(x2[i]), yf = __bfloat1622float2(y2[i]);
+      part += xf.x * yf.x + xf.y * yf.y;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (lane == 0) {
+    const long long bs = row / H;
+    const int h = static_cast<int>(row % H), s = static_cast<int>(bs % S);
+    delta[(bs / S * H + h) * S + s] = part;
+  }
+}
+
+// dQ: one CTA per (128-query tile, batch * head), longest tiles first.  The
+// producer streams the 64-key tiles of K and V up to the causal frontier;
+// consumer warpgroup c (queries q0 + 64 c ...) computes S = Q K^T and dP =
+// dO V^T, dS = P (dP - Delta) with P = exp(scale S - lse) masked on its
+// last tile only (the tile past it, warpgroup 0's last, is released
+// unread), and dQ += dS K.
+template <int D>
+__global__ void __launch_bounds__(G_THREADS, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int S, int H, int Hkv, float scale) {
+  using L = BwdSmem<D>;
+  constexpr int PANELS = D / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_own = base + L::BAR;
+  const auto full = [&](int s) { return bar_own + 8u * (1 + s); };
+  const auto empty = [&](int s) { return bar_own + 8u * (1 + G_STAGES + s); };
+
+  const int nq = (S + G_OWN - 1) / G_OWN;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x), q0 = qt * G_OWN;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int nkt = min(2 * (qt + 1), (S + G_LOOP - 1) / G_LOOP);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own, 1);
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);  // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      mbar_expect_tx(bar_own, 2 * L::OWN);
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p) {
+        tma_load_4d(base + L::A + p * G_OWN_PANEL, &tq, bar_own, 64 * p, h, q0, b);
+        tma_load_4d(base + L::B + p * G_OWN_PANEL, &tdo, bar_own, 64 * p, h, q0, b);
+      }
+      for (int it = 0; it < nkt; ++it) {
+        const int s = it % G_STAGES, use = it / G_STAGES;
+        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+        mbar_expect_tx(full(s), 2 * L::LOOP);
+#pragma unroll
+        for (int p = 0; p < PANELS; ++p) {
+          tma_load_4d(base + L::X + s * L::LOOP + p * G_LOOP_PANEL, &tk, full(s), 64 * p, hk, it * G_LOOP, b);
+          tma_load_4d(base + L::Y + s * L::LOOP + p * G_LOOP_PANEL, &tv, full(s), 64 * p, hk, it * G_LOOP, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const int row_lo = q0 + 64 * c + 16 * warp + g, row_hi = row_lo + 8;
+    const size_t roff = static_cast<size_t>(bh) * S;
+    const float lse_lo = row_lo < S ? lse[roff + row_lo] : 0.f, lse_hi = row_hi < S ? lse[roff + row_hi] : 0.f;
+    const float del_lo = row_lo < S ? delta[roff + row_lo] : 0.f, del_hi = row_hi < S ? delta[roff + row_hi] : 0.f;
+    const int own = min(2 * qt + c + 1, nkt);  // this warpgroup's rows end on tile 2 qt + c
+    const uint32_t qb = base + L::A + c * 64 * 128, ob = base + L::B + c * 64 * 128;
+    float acc[D / 2], sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+
+    mbar_wait(bar_own, 0);
+    for (int it = 0; it < own; ++it) {
+      const int s = it % G_STAGES;
+      const uint32_t ks = base + L::X + s * L::LOOP, vs = base + L::Y + s * L::LOOP;
+      mbar_wait(full(s), (it / G_STAGES) & 1);
+      wg_fence();
+      wgmma_scores<D>(sc, qb, ks);  // S = Q K^T
+      wgmma_scores<D>(dp, ob, vs);  // dP = dO V^T
+      wg_commit();
+      wg_wait0();
+      hold(sc);
+      hold(dp);
+      const bool diag = it == own - 1;
+      uint32_t da[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = it * G_LOOP + 8 * j + 2 * t4 + e;
+          float p_lo = __expf(sc[4 * j + e] * scale - lse_lo), p_hi = __expf(sc[4 * j + 2 + e] * scale - lse_hi);
+          if (diag) {
+            p_lo = kpos <= row_lo ? p_lo : 0.f;
+            p_hi = kpos <= row_hi ? p_hi : 0.f;
+          }
+          ds[e] = p_lo * (dp[4 * j + e] - del_lo);
+          ds[2 + e] = p_hi * (dp[4 * j + 2 + e] - del_hi);
+        }
+        da[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
+        da[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      wg_fence();
+      wgmma_grad<D>(acc, da, ks);  // dQ += dS K
+      wg_commit();
+      wg_wait0();
+      hold(acc);
+      hold(da);
+      mbar_arrive(empty(s));
+    }
+    for (int it = own; it < nkt; ++it) {  // waited for, so that its stage's previous use is released first
+      mbar_wait(full(it % G_STAGES), (it / G_STAGES) & 1);
+      mbar_arrive(empty(it % G_STAGES));
+    }
+    const size_t qs = static_cast<size_t>(H) * D;
+    __nv_bfloat16* out = dq + static_cast<size_t>(b) * S * qs + static_cast<size_t>(h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (row_lo < S)
+        *reinterpret_cast<__nv_bfloat162*>(out + row_lo * qs + col) =
+            __floats2bfloat162_rn(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+      if (row_hi < S)
+        *reinterpret_cast<__nv_bfloat162*>(out + row_hi * qs + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+    }
+  }
+}
+
+// dK/dV: one CTA per (128-key tile, batch * KV head), the first key tiles
+// (the most queries) first.  The producer streams the 64-query tiles of Q
+// and dO from the diagonal on, for each query head of the GQA group in
+// turn (the group sum stays in the CTA: no atomics); consumer warpgroup c
+// (keys k0 + 64 c ...) computes S^T = K Q^T and dP^T = V dO^T, P^T =
+// exp(scale S^T - lse) (masked on the diagonal tile and past S), dV += P^T
+// dO, dS^T = P^T (dP^T - Delta) and dK += dS^T Q.  lse and Delta vary along
+// the columns: each thread of the warpgroup copies one of the tile's 128
+// values into shared memory, and the warpgroup meets at a named barrier.
+template <int D>
+__global__ void __launch_bounds__(G_THREADS, 1)
+    flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H, int Hkv,
+                         float scale) {
+  using L = BwdSmem<D>;
+  constexpr int PANELS = D / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_own = base + L::BAR;
+  const auto full = [&](int s) { return bar_own + 8u * (1 + s); };
+  const auto empty = [&](int s) { return bar_own + 8u * (1 + G_STAGES + s); };
+
+  const int k0 = static_cast<int>(blockIdx.x) * G_OWN;
+  const int bhk = blockIdx.y, b = bhk / Hkv, hk = bhk % Hkv, rep = H / Hkv;
+  const int first = k0 / G_LOOP;                               // the first query tile that sees key k0
+  const int per_head = (S + G_LOOP - 1) / G_LOOP - first;      // query tiles of each head
+  const int n_it = rep * per_head;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own, 1);
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      mbar_expect_tx(bar_own, 2 * L::OWN);
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p) {
+        tma_load_4d(base + L::A + p * G_OWN_PANEL, &tk, bar_own, 64 * p, hk, k0, b);
+        tma_load_4d(base + L::B + p * G_OWN_PANEL, &tv, bar_own, 64 * p, hk, k0, b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % G_STAGES, use = it / G_STAGES;
+        const int h = hk * rep + it / per_head, q0 = (first + it % per_head) * G_LOOP;
+        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+        mbar_expect_tx(full(s), 2 * L::LOOP);
+#pragma unroll
+        for (int p = 0; p < PANELS; ++p) {
+          tma_load_4d(base + L::X + s * L::LOOP + p * G_LOOP_PANEL, &tq, full(s), 64 * p, h, q0, b);
+          tma_load_4d(base + L::Y + s * L::LOOP + p * G_LOOP_PANEL, &tdo, full(s), 64 * p, h, q0, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const int key_lo = k0 + 64 * c + 16 * warp + g, key_hi = key_lo + 8;
+    const uint32_t kb = base + L::A + c * 64 * 128, vb = base + L::B + c * 64 * 128;
+    // this warpgroup's two buffers of [lse of 64 queries, Delta of 64 queries]
+    float* const rows_wg =
+        reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + L::ROWS) + c * 2 * 2 * G_LOOP;
+    float dka[D / 2], dva[D / 2], st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+
+    mbar_wait(bar_own, 0);
+    int done = 0;  // tiles this warpgroup has read: picks the lse / Delta buffer
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % G_STAGES, i = it % per_head;
+      const int h = hk * rep + it / per_head, q0 = (first + i) * G_LOOP;
+      mbar_wait(full(s), (it / G_STAGES) & 1);
+      if (i < c) {  // queries before all of this warpgroup's keys: nothing to add
+        mbar_arrive(empty(s));
+        continue;
+      }
+      const uint32_t qs = base + L::X + s * L::LOOP, os = base + L::Y + s * L::LOOP;
+      wg_fence();
+      wgmma_scores<D>(st, kb, qs);   // S^T = K Q^T
+      wgmma_scores<D>(dpt, vb, os);  // dP^T = V dO^T
+      wg_commit();
+      float* const rows = rows_wg + (done & 1) * 2 * G_LOOP;
+      {
+        const int q = q0 + tid % G_LOOP;
+        const float* src = tid < G_LOOP ? lse : delta;
+        rows[tid] = q < S ? src[(static_cast<size_t>(b) * H + h) * S + q] : 0.f;
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+      ++done;
+      wg_wait0();
+      hold(st);
+      hold(dpt);
+      const bool edge = i == c || q0 + G_LOOP > S;
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float pv[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t4 + e, qpos = q0 + col;
+          const float l = rows[col], dl = rows[G_LOOP + col];
+          float p_lo = __expf(st[4 * j + e] * scale - l), p_hi = __expf(st[4 * j + 2 + e] * scale - l);
+          if (edge) {
+            p_lo = key_lo <= qpos && qpos < S ? p_lo : 0.f;
+            p_hi = key_hi <= qpos && qpos < S ? p_hi : 0.f;
+          }
+          pv[e] = p_lo;
+          pv[2 + e] = p_hi;
+          ds[e] = p_lo * (dpt[4 * j + e] - dl);
+          ds[2 + e] = p_hi * (dpt[4 * j + 2 + e] - dl);
+        }
+        pa[j / 2][(j % 2) * 2] = pack_bf16(pv[0], pv[1]);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+        da[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
+        da[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      wg_fence();
+      wgmma_grad<D>(dva, pa, os);  // dV += P^T dO
+      wgmma_grad<D>(dka, da, qs);  // dK += dS^T Q
+      wg_commit();
+      wg_wait0();
+      hold(dva);
+      hold(dka);
+      hold(pa);
+      hold(da);
+      mbar_arrive(empty(s));
+    }
+    const size_t ks = static_cast<size_t>(Hkv) * D;
+    const size_t koff = static_cast<size_t>(b) * S * ks + static_cast<size_t>(hk) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (key_lo < S) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + koff + key_lo * ks + col) =
+            __floats2bfloat162_rn(dka[4 * j] * scale, dka[4 * j + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + koff + key_lo * ks + col) =
+            __floats2bfloat162_rn(dva[4 * j], dva[4 * j + 1]);
+      }
+      if (key_hi < S) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + koff + key_hi * ks + col) =
+            __floats2bfloat162_rn(dka[4 * j + 2] * scale, dka[4 * j + 3] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + koff + key_hi * ks + col) =
+            __floats2bfloat162_rn(dva[4 * j + 2], dva[4 * j + 3]);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_wgmma(int B, int S, int H, int Hkv, float scale, cudaStream_t stream, const void* q, const void* k,
+                 const void* v, const void* o, const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                 void* dv) {
+  using bf = __nv_bfloat16;
+  // the dQ kernel owns 128 queries and streams 64 keys; dK/dV the reverse
+  CUtensorMap q_own, do_own, k_loop, v_loop, q_loop, do_loop, k_own, v_own;
+  int err = encode_bshd(&q_own, q, B, S, H, D, G_OWN);
+  if (err == 0) err = encode_bshd(&do_own, dout, B, S, H, D, G_OWN);
+  if (err == 0) err = encode_bshd(&k_loop, k, B, S, Hkv, D, G_LOOP);
+  if (err == 0) err = encode_bshd(&v_loop, v, B, S, Hkv, D, G_LOOP);
+  if (err == 0) err = encode_bshd(&q_loop, q, B, S, H, D, G_LOOP);
+  if (err == 0) err = encode_bshd(&do_loop, dout, B, S, H, D, G_LOOP);
+  if (err == 0) err = encode_bshd(&k_own, k, B, S, Hkv, D, G_OWN);
+  if (err == 0) err = encode_bshd(&v_own, v, B, S, Hkv, D, G_OWN);
+  if (err != 0) return err;
+  constexpr int smem = BwdSmem<D>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long rows = static_cast<long long>(B) * S * H;
+  flash_bwd_delta<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const bf*>(o), static_cast<const bf*>(dout), delta, S, H, D, rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (S + G_OWN - 1) / G_OWN;
+  flash_bwd_dq_wgmma<D><<<dim3(tiles, B * H), G_THREADS, smem, stream>>>(q_own, do_own, k_loop, v_loop, lse, delta,
+                                                                          static_cast<bf*>(dq), S, H, Hkv, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkdv_wgmma<D><<<dim3(tiles, B * Hkv), G_THREADS, smem, stream>>>(
+      q_loop, do_loop, k_own, v_own, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), S, H, Hkv, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DMAX>
 int launch(int B, int S, int H, int Hkv, int D, float scale, cudaStream_t stream, const void* q, const void* k,
            const void* v, const void* o, const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -637,11 +1047,13 @@ int dispatch(int B, int S, int H, int Hkv, int D, float scale, cudaStream_t s, c
 
 // dtype: 1 = float32, 2 = bfloat16 (q, k, v, o, dout, dq, dk, dv alike);
 // variant: 0 = bwd_simple (CUDA cores, any D up to 256), 1 = bwd_mma
-// (bfloat16, D % 16 == 0, D <= 128, every operand 16-byte aligned), chosen
+// (bfloat16, D % 16 == 0, D <= 128), 2 = bwd_wgmma (bfloat16, D in {64,
+// 128}); bwd_mma and bwd_wgmma need every operand 16-byte aligned.  Chosen
 // by the caller; one that does not take the input is refused.  lse float32
 // [B, H, S] from the forward; delta float32 [B, H, S] scratch.  Launches the
-// dQ kernel, then the dK/dV kernel, on ``stream``.  Returns a cudaError_t:
-// 0 when both launches were accepted.  Does not synchronise.
+// variant's kernels in order on ``stream`` (bwd_simple, bwd_mma: dQ, which
+// also writes Delta, then dK/dV; bwd_wgmma: Delta, dQ, dK/dV).  Returns a
+// cudaError_t: 0 when every launch was accepted.  Does not synchronise.
 extern "C" int flash_attention_bwd_launch(int dtype, int variant, const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse, void* delta, void* dq,
                                           void* dk, void* dv, int B, int S, int H, int Hkv, int D, float scale,
@@ -652,11 +1064,16 @@ extern "C" int flash_attention_bwd_launch(int dtype, int variant, const void* q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (variant == 1) {
-    if (dtype != 2 || D % 16 != 0 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 1 || variant == 2) {
+    if (dtype != 2 || D % 16 != 0 || D > 128 || (variant == 2 && D != 64 && D != 128))
+      return static_cast<int>(cudaErrorInvalidValue);
     for (const void* p : {q, k, v, o, dout, static_cast<const void*>(dq), static_cast<const void*>(dk),
                           static_cast<const void*>(dv)})
       if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (variant == 2) {
+      if (D == 64) return launch_wgmma<64>(B, S, H, Hkv, scale, s, q, k, v, o, dout, l, dl, dq, dk, dv);
+      return launch_wgmma<128>(B, S, H, Hkv, scale, s, q, k, v, o, dout, l, dl, dq, dk, dv);
+    }
     if (D <= 64) return launch_mma<64>(B, S, H, Hkv, D, scale, s, q, k, v, o, dout, l, dl, dq, dk, dv);
     return launch_mma<128>(B, S, H, Hkv, D, scale, s, q, k, v, o, dout, l, dl, dq, dk, dv);
   }

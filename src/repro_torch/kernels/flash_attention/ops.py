@@ -31,25 +31,32 @@ MAX_HEAD_DIM = 256
 VARIANTS = ("flash_simple", "flash_mma", "flash_wgmma")  # the launcher's variant codes 0, 1, 2
 
 
+WGMMA_HEAD_DIMS = (64, 128, 160, 256)  # flash_wgmma's instantiations
+
+
 def variant(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that a launch of (dtype, head_dim) takes: ``flash_wgmma``
-    (TMA, warp-specialised wgmma) for bfloat16 with D in {64, 128};
-    ``flash_mma`` (mma.sync) for other bfloat16 with D % 16 == 0;
-    ``flash_simple`` (CUDA cores) for float32 and the remaining D."""
-    if dtype == torch.bfloat16 and head_dim in (64, 128):
+    (TMA, warp-specialised wgmma) for bfloat16 with D in {64, 128} (key
+    tiles of 128) and {160, 256} (key tiles of 64; D = 160 as three
+    64-column panels); ``flash_mma`` (mma.sync) for other bfloat16 with D %
+    16 == 0; ``flash_simple`` (CUDA cores) for float32 and the remaining D."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "flash_wgmma"
     if dtype == torch.bfloat16 and head_dim % 16 == 0:
         return "flash_mma"
     return "flash_simple"
 
 
-BWD_VARIANTS = ("bwd_simple", "bwd_mma")  # the backward launcher's variant codes 0, 1
+BWD_VARIANTS = ("bwd_simple", "bwd_mma", "bwd_wgmma")  # the backward launcher's variant codes 0, 1, 2
 
 
 def bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward kernels that a launch takes: ``bwd_mma`` (mma.sync) for
-    bfloat16 with D % 16 == 0 and D <= 128; ``bwd_simple`` (CUDA cores) for
-    float32 and the rest."""
+    """The backward kernels that a launch takes: ``bwd_wgmma`` (TMA,
+    warp-specialised wgmma: Delta, dQ, dK/dV kernels) for bfloat16 with D in
+    {64, 128}; ``bwd_mma`` (mma.sync) for other bfloat16 with D % 16 == 0 and
+    D <= 128; ``bwd_simple`` (CUDA cores) for float32 and the rest."""
+    if dtype == torch.bfloat16 and head_dim in (64, 128):
+        return "bwd_wgmma"
     return "bwd_mma" if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128 else "bwd_simple"
 
 
@@ -157,9 +164,12 @@ def _launch(q, k, v, kind=None, with_lse: bool = False):
     return out, lse
 
 
-def _launch_bwd(q, k, v, out, lse, dout):
+def _launch_bwd(q, k, v, out, lse, dout, kind=None):
     """The backward kernel: (dq, dk, dv) in q's dtype from the forward's
-    q, k, v, output and row log-sum-exp and the output's gradient."""
+    q, k, v, output and row log-sum-exp and the output's gradient.  ``kind``
+    forces one of ``BWD_VARIANTS`` in place of ``bwd_variant(dtype, D)``'s
+    choice (to time one variant against another); the launcher refuses a
+    variant that cannot take the shape."""
     _check(q, k, v)
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"flash_attention backward needs out and dout shaped and typed as q {tuple(q.shape)} "
@@ -174,10 +184,12 @@ def _launch_bwd(q, k, v, out, lse, dout):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
-    kind = bwd_variant(q.dtype, d)
-    if kind == "bwd_mma" and any(a.data_ptr() % 16 for a in (q, k, v, out, dout)):
-        raise ValueError("flash_attention backward bwd_mma moves q, k, v, out, dout in 16-byte pieces and needs "
-                         "them 16-byte aligned")
+    if kind is not None and kind not in BWD_VARIANTS:
+        raise ValueError(f"kind must be one of {BWD_VARIANTS}, got {kind!r}")
+    kind = kind or bwd_variant(q.dtype, d)
+    if kind != "bwd_simple" and any(a.data_ptr() % 16 for a in (q, k, v, out, dout, dq, dk, dv)):
+        raise ValueError(f"flash_attention backward {kind} moves q, k, v, out, dout (through TMA in bwd_wgmma) and "
+                         "dq, dk, dv in 16-byte pieces and needs them 16-byte aligned")
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd_library().flash_attention_bwd_launch(

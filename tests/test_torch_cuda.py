@@ -205,11 +205,12 @@ def test_flash_kernel_matches_plain(card, dtype, b, s, h, hkv, d):
 
 
 @pytest.mark.parametrize("s", [1, 63, 128, 129, 1000, 2048, 8192])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 160, 256])
 @pytest.mark.parametrize("n_rep", [1, 4, 8])
 def test_flash_wgmma_matches_plain(card, s, d, n_rep):
-    """flash_wgmma (bf16, D in {64, 128}) per output row against the plain
-    version, B=3 (B=1 at S=8192), 8 query heads."""
+    """flash_wgmma (bf16, D in {64, 128} on key tiles of 128, {160, 256} on
+    key tiles of 64) per output row against the plain version, B=3 (B=1 at
+    S=8192), 8 query heads."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 
     b, h = (1 if s == 8192 else 3), 8
@@ -477,22 +478,25 @@ def test_lm_decode_on_card_matches_forward(card, arch):
     torch.testing.assert_close(torch.stack(dec, 1), full, rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("kind", [None, "flash_mma"])
 @pytest.mark.parametrize("s", [1, 63, 200, 2048])
 @pytest.mark.parametrize("h,hkv,d", [(8, 2, 160), (10, 1, 256)])
-def test_flash_mma_matches_plain_at_wide_heads(card, s, h, hkv, d):
-    """flash_mma at pixtral_12b's head dim (160, H/Hkv = 4; the DMAX=256
-    instantiation) and recurrentgemma_2b's (256, one KV head), ragged S,
-    per output row against the plain version (2e-2 in bf16)."""
+def test_flash_mma_matches_plain_at_wide_heads(card, s, h, hkv, d, kind):
+    """At pixtral_12b's head dim (160, H/Hkv = 4) and recurrentgemma_2b's
+    (256, one KV head), ragged S, per output row against the plain version
+    (2e-2 in bf16): the wrapper's own pick (flash_wgmma) and flash_mma forced
+    (its DMAX=256 instantiation)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 
+    want_kind = kind or "flash_wgmma"
     g = torch.Generator(device=card).manual_seed(s * d + h)
     q = torch.randn(2, s, h, d, generator=g, device=card).bfloat16()
     k = torch.randn(2, s, hkv, d, generator=g, device=card).bfloat16()
     v = torch.randn(2, s, hkv, d, generator=g, device=card).bfloat16()
-    before = kernels.VARIANT_LAUNCHES["flash_attention"]["flash_mma"]
-    got = flash_attention_bshd(q, k, v)
+    before = kernels.VARIANT_LAUNCHES["flash_attention"][want_kind]
+    got = flash_attention_bshd(q, k, v, kind=kind)
     torch.cuda.synchronize()
-    assert kernels.VARIANT_LAUNCHES["flash_attention"]["flash_mma"] == before + 1
+    assert kernels.VARIANT_LAUNCHES["flash_attention"][want_kind] == before + 1
     assert _row_rel_err(got, flash_attention_bshd(q, k, v, use_kernel=False)) <= FLASH_TOL[torch.bfloat16]
 
 
@@ -510,22 +514,28 @@ def test_flash_forced_kind_launches_that_variant(card):
     after = kernels.VARIANT_LAUNCHES["flash_attention"]
     assert after["flash_mma"] == before["flash_mma"] + 1 and after["flash_wgmma"] == before["flash_wgmma"]
     assert _row_rel_err(got, flash_attention_bshd(q, k, v, use_kernel=False)) <= FLASH_TOL[torch.bfloat16]
-    q = torch.zeros(1, 8, 2, 160, device=card, dtype=torch.bfloat16)
+    q = torch.zeros(1, 8, 2, 96, device=card, dtype=torch.bfloat16)
     with pytest.raises(RuntimeError):
         flash_attention_bshd(q, q, q, kind="flash_wgmma")
 
 
-def test_flash_mma_is_strictly_causal_at_d256(card):
+@pytest.mark.parametrize("kind", [None, "flash_mma"])
+def test_flash_mma_is_strictly_causal_at_d256(card, kind):
+    """Future keys and values change no earlier output at D=256, for the
+    wrapper's pick (flash_wgmma, key tiles of 64 under query tiles of 128)
+    and flash_mma forced."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 
     g = torch.Generator(device=card).manual_seed(6)
     q = torch.randn(2, 384, 10, 256, generator=g, device=card).bfloat16()
     k, v = (torch.randn(2, 384, 1, 256, generator=g, device=card).bfloat16() for _ in range(2))
-    o1 = flash_attention_bshd(q, k, v)
-    for cut in (200, 256):  # inside a key tile, and at a tile boundary
+    o1 = flash_attention_bshd(q, k, v, kind=kind)
+    # inside a 64-key tile, at a 64-key tile boundary inside a 128-query
+    # tile (between its two consumer warpgroups), and at a 128 boundary
+    for cut in (200, 192, 256):
         k2, v2 = k.clone(), v.clone()
         k2[:, cut:], v2[:, cut:] = 99.0, -99.0
-        assert torch.equal(o1[:, :cut], flash_attention_bshd(q, k2, v2)[:, :cut])
+        assert torch.equal(o1[:, :cut], flash_attention_bshd(q, k2, v2, kind=kind)[:, :cut])
 
 
 @pytest.mark.parametrize("arch", ["codeqwen15_7b", "granite_3_2b", "qwen15_110b", "qwen2_moe_a27b",
@@ -1263,8 +1273,8 @@ def test_spmd_run_on_card_matches_batched(card):
 # plain version of each backward), per tensor ||got - want|| / ||want||.
 # float32: the sums run in other orders; bf16: each side rounds its
 # gradients (and the kernel its forward output, which its Delta reads) to
-# bf16 once, 2^-9 relative, and bwd_mma rounds P and dS to bf16 for its
-# tensor-core products (read 3.3e-3 on an H100).  A gradient that the plain version gives as
+# bf16 once, 2^-9 relative, and bwd_wgmma and bwd_mma round P and dS to bf16
+# for their tensor-core products (bwd_mma read 3.3e-3 on an H100).  A gradient that the plain version gives as
 # exactly zero (dq and dk at S=1, where p = 1 and dP - Delta cancels; dlogw
 # at T=1, which reaches only the dropped final state, where autograd gives
 # None) is held to the limit relative to ||dO||: the kernel's cancellation
@@ -1294,6 +1304,7 @@ def _flash_grads(q, k, v, do, use_kernel):
     (2, 37, 4, 4, 16),      # GQA 1, ragged S, the smoke head dim
     (1, 130, 8, 2, 64),     # GQA 4, ragged over several tiles
     (1, 200, 8, 1, 128),    # GQA 8 (one KV head), llama3_8b's head dim
+    (2, 700, 4, 1, 128),    # ragged over many 64- and 128-row tiles
     (1, 100, 8, 2, 160),    # pixtral_12b's head dim
     (1, 150, 4, 1, 256),    # recurrentgemma_2b's head dim, one KV head
 ])
@@ -1310,11 +1321,34 @@ def test_flash_backward_matches_plain(card, dtype, b, s, h, hkv, d):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flash_attention"] == fwd + 1
     kind = bwd_variant(dtype, d)
-    assert kind == ("bwd_mma" if dtype == torch.bfloat16 and d <= 128 else "bwd_simple")
+    bf16 = dtype == torch.bfloat16
+    assert kind == ("bwd_wgmma" if bf16 and d in (64, 128) else "bwd_mma" if bf16 and d <= 128 else "bwd_simple")
     assert kernels.VARIANT_LAUNCHES["flash_attention_bwd"] == {**bwd, kind: bwd[kind] + 1}
     for name, gt, want in zip("qkv", got, _flash_grads(q, k, v, do, False)):
         assert gt.dtype == dtype and gt.shape == want.shape
         assert _l2_rel(gt, want, do.double().norm().item()) <= BWD_TOL[dtype], name
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d", [
+    (1, 130, 8, 2, 64),     # GQA 4, ragged over several tiles
+    (1, 200, 8, 1, 128),    # GQA 8, llama3_8b's head dim
+])
+def test_flash_backward_forced_mma_matches_plain(card, b, s, h, hkv, d):
+    """bwd_mma, forced where the wrapper takes bwd_wgmma, launches and
+    counts bwd_mma and matches autograd through the plain version (bf16)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    g = torch.Generator(device=card).manual_seed(s * d + h + 1)
+    q = torch.randn(b, s, h, d, generator=g, device=card).bfloat16()
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device=card).bfloat16() for _ in range(2))
+    do = torch.randn(b, s, h, d, generator=g, device=card).bfloat16()
+    out, lse = flash_ops._launch(q, k, v, with_lse=True)
+    before = dict(kernels.VARIANT_LAUNCHES["flash_attention_bwd"])
+    got = flash_ops._launch_bwd(q, k, v, out, lse, do, kind="bwd_mma")
+    torch.cuda.synchronize()
+    assert kernels.VARIANT_LAUNCHES["flash_attention_bwd"] == {**before, "bwd_mma": before["bwd_mma"] + 1}
+    for name, gt, want in zip("qkv", got, _flash_grads(q, k, v, do, False)):
+        assert _l2_rel(gt, want, do.double().norm().item()) <= BWD_TOL[torch.bfloat16], name
 
 
 def test_flash_backward_is_deterministic_and_causal(card):
@@ -1337,9 +1371,11 @@ def test_flash_backward_is_deterministic_and_causal(card):
     assert not dk1[:, 200:].any() and not dv1[:, 200:].any()
 
 
-def test_flash_backward_refuses_misaligned_operands(card):
-    """bwd_mma moves its operands in 16-byte pieces: a dout that is not
-    16-byte aligned raises rather than taking another variant."""
+@pytest.mark.parametrize("kind", [None, "bwd_mma"])
+def test_flash_backward_refuses_misaligned_operands(card, kind):
+    """bwd_wgmma (the wrapper's pick at D=64: TMA) and bwd_mma move their
+    operands in 16-byte pieces: a dout that is not 16-byte aligned raises
+    rather than taking another variant."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
 
     g = torch.Generator(device=card).manual_seed(3)
@@ -1348,9 +1384,10 @@ def test_flash_backward_refuses_misaligned_operands(card):
     do = torch.randn(q.numel() + 1, generator=g, device=card).bfloat16()[1:].view(q.shape)
     before = dict(kernels.VARIANT_LAUNCHES["flash_attention_bwd"])
     with pytest.raises(ValueError, match="16-byte aligned"):
-        flash_ops._launch_bwd(q, k, v, out, lse, do)
+        flash_ops._launch_bwd(q, k, v, out, lse, do, kind=kind)
     assert kernels.VARIANT_LAUNCHES["flash_attention_bwd"] == before
-    flash_ops._launch_bwd(q, k, v, out, lse, do.clone())
+    flash_ops._launch_bwd(q, k, v, out, lse, do.clone(), kind=kind)
+    assert kernels.VARIANT_LAUNCHES["flash_attention_bwd"][kind or "bwd_wgmma"] == before[kind or "bwd_wgmma"] + 1
 
 
 def _scan_grads(r, k, v, logw, u, do, use_kernel, state=None):

@@ -17,6 +17,7 @@ from repro.kernels.rwkv6_scan.kernel import rwkv6_scan as j_scan
 from repro.kernels.rwkv6_scan.ops import rwkv6_wkv as j_wkv
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+from repro_torch.kernels.flash_attention.ops import bwd_variant as flash_bwd_variant
 from repro_torch.kernels.flash_attention.ops import variant as flash_variant
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
@@ -75,7 +76,8 @@ def test_flash_wrapper_matches_reference_wrapper(b, s, h, hkv, d):
     (torch.bfloat16, 64, "flash_wgmma"),
     (torch.bfloat16, 96, "flash_mma"),
     (torch.bfloat16, 16, "flash_mma"),
-    (torch.bfloat16, 256, "flash_mma"),
+    (torch.bfloat16, 256, "flash_wgmma"),   # recurrentgemma_2b's heads
+    (torch.bfloat16, 160, "flash_wgmma"),   # pixtral_12b's heads
     (torch.bfloat16, 48 + 1, "flash_simple"),
     (torch.float32, 128, "flash_simple"),
     (torch.float32, 64, "flash_simple"),
@@ -83,6 +85,35 @@ def test_flash_wrapper_matches_reference_wrapper(b, s, h, hkv, d):
 def test_flash_dispatch(dtype, d, want):
     """The launcher picks its kernel from (dtype, D) before any launch."""
     assert flash_variant(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, "bwd_wgmma"),   # llama3_8b's heads
+    (torch.bfloat16, 64, "bwd_wgmma"),
+    (torch.bfloat16, 16, "bwd_mma"),
+    (torch.bfloat16, 96, "bwd_mma"),
+    (torch.bfloat16, 160, "bwd_simple"),
+    (torch.bfloat16, 256, "bwd_simple"),
+    (torch.float32, 128, "bwd_simple"),
+    (torch.float32, 64, "bwd_simple"),
+])
+def test_flash_bwd_dispatch(dtype, d, want):
+    """The backward launcher picks its kernels from (dtype, D) before any
+    launch."""
+    assert flash_bwd_variant(dtype, d) == want
+
+
+def test_kernel_library_is_named_by_its_headers_too(tmp_path):
+    """A source's library is rebuilt when a header beside it changes: the
+    flash sources share hopper.cuh."""
+    from repro_torch.kernels.build import library_path
+
+    src, header = tmp_path / "k.cu", tmp_path / "shared.cuh"
+    src.write_text('#include "shared.cuh"\n')
+    header.write_text("// one\n")
+    first = library_path(src)
+    header.write_text("// two\n")
+    assert library_path(src) != first and library_path(src).name.startswith("k-")
 
 
 def test_flash_plain_is_strictly_causal():
