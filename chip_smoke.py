@@ -1689,12 +1689,17 @@ def flash_grads(q, k, v, do, use_kernel=True):
     return {"q": q.grad, "k": k.grad, "v": v.grad}
 
 
-def scan_grads(r, k, v, logw, u, do, use_kernel=True):
+def scan_grads(r, k, v, logw, u, do, use_kernel=True, s0=None, ds_fin=None):
+    """Gradients of sum(out * do), plus sum(s_fin * ds_fin) when given, with
+    respect to r, k, v, logw, u and, when given, the initial state s0."""
     from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
 
     leaves = {n: a.detach().requires_grad_(True) for n, a in zip(("r", "k", "v", "logw", "u"), (r, k, v, logw, u))}
-    out, _ = rwkv6_wkv(*leaves.values(), out_dtype=do.dtype, use_kernel=use_kernel)
-    out.backward(do)
+    if s0 is not None:
+        leaves["s0"] = s0.detach().requires_grad_(True)
+    out, s_fin = rwkv6_wkv(*list(leaves.values())[:5], state=leaves.get("s0"), out_dtype=do.dtype,
+                           use_kernel=use_kernel)
+    torch.autograd.backward([out] + ([] if ds_fin is None else [s_fin]), [do] + ([] if ds_fin is None else [ds_fin]))
     return {n: a.grad for n, a in leaves.items()}
 
 
@@ -1746,21 +1751,27 @@ def backward_kernel_cases(dev):
             if dtype == torch.float32 and s == TRAIN_SEQ:
                 controls["flash_attention_bwd"] = flash_bwd_controls(q, k, v, do, want)
             del q, k, v, do, got, want
-        for b, t, h, n in ((TRAIN_BATCH, TRAIN_SEQ, 40, 64), (2, 100, 4, 16)):
+        # the last case carries an initial state that takes a gradient and a
+        # loss on the final state (dS0 and dS_fin, held to the float32 limit)
+        for b, t, h, n, states in ((TRAIN_BATCH, TRAIN_SEQ, 40, 64, False), (2, 100, 4, 16, False),
+                                   (2, 300, 8, 64, True)):
             r, k, v, logw, u, do = scan_inputs(dev, g, dtype, b, t, h, n)
-            before = kernels.LAUNCHES["rwkv6_scan_bwd"]
-            got = scan_grads(r, k, v, logw, u, do)
+            s0, ds_fin = ((0.1 * torch.randn(b, h, n, n, generator=g, device=dev),
+                           torch.randn(b, h, n, n, generator=g, device=dev)) if states else (None, None))
+            before = dict(kernels.VARIANT_LAUNCHES["rwkv6_scan_bwd"])
+            got = scan_grads(r, k, v, logw, u, do, s0=s0, ds_fin=ds_fin)
             torch.cuda.synchronize()
-            if kernels.LAUNCHES["rwkv6_scan_bwd"] != before + 1:
-                fail(f"scan backward at N={n} did not launch its kernel once")
-            want = scan_grads(r, k, v, logw, u, do, use_kernel=False)
-            check("rwkv6_scan_bwd", dtype, f"B={b} T={t} H={h} N={n} (r, k, v)",
-                  {x: got[x] for x in "rkv"}, {x: want[x] for x in "rkv"})
-            check("rwkv6_scan_bwd", torch.float32, f"B={b} T={t} H={h} N={n} (logw, u)",
-                  {x: got[x] for x in ("logw", "u")}, {x: want[x] for x in ("logw", "u")})
+            if kernels.VARIANT_LAUNCHES["rwkv6_scan_bwd"] != {**before, f"chunk{n}": before[f"chunk{n}"] + 1}:
+                fail(f"scan backward at N={n} did not launch chunk{n} once")
+            want = scan_grads(r, k, v, logw, u, do, use_kernel=False, s0=s0, ds_fin=ds_fin)
+            label = f"B={b} T={t} H={h} N={n}" + (" from s0, with dS_fin" if states else "")
+            check("rwkv6_scan_bwd", dtype, f"{label} (r, k, v)", {x: got[x] for x in "rkv"}, {x: want[x] for x in "rkv"})
+            f32 = ("logw", "u") + (("s0",) if states else ())
+            check("rwkv6_scan_bwd", torch.float32, f"{label} ({', '.join(f32)})",
+                  {x: got[x] for x in f32}, {x: want[x] for x in f32})
             if dtype == torch.float32 and t == TRAIN_SEQ:
                 controls["rwkv6_scan_bwd"] = scan_bwd_controls(r, k, v, do, u, want)
-            del r, k, v, logw, u, do, got, want
+            del r, k, v, logw, u, do, s0, ds_fin, got, want
     for name, faults in controls.items():
         tol = BWD_TOL[name][torch.float32]
         log(f"  {name} worst per-tensor rel L2 vs plain: " + ", ".join(f"{k} {v:.2e}" for k, v in worst[name].items())
@@ -1835,8 +1846,8 @@ def train_grads_vs_plain(arch: str, dev, layers: int) -> dict:
     ops = scan_ops if cfg.family == "ssm" else flash_ops
     launch_bwd = ops._launch_bwd
 
-    def planted(*args):
-        grads = launch_bwd(*args)
+    def planted(*args, **kwargs):
+        grads = launch_bwd(*args, **kwargs)
         grads[0 if ops is flash_ops else 1][:, -64 if ops is flash_ops else -32:] = 0.0
         return grads
 
@@ -1921,6 +1932,8 @@ def train_run(arch: str, dev, layers) -> dict:
             want = {fwd: {flash_ops.variant(torch.bfloat16, d): 2 * n}, bwd: {flash_ops.bwd_variant(torch.bfloat16, d): n}}
             if row["variants"] != want:
                 fail(f"{arch} training step {i} launched flash as {row['variants']}, not {want}")
+        elif row["variants"][bwd] != {f"chunk{cfg.rwkv_head_dim}": n}:
+            fail(f"{arch} training step {i} launched the scan backward as {row['variants'][bwd]}")
     del params, opt
     torch.cuda.empty_cache()
     rec.update(wall_s=time.perf_counter() - t_start, launches=rec["steps"][-1]["launches"],
@@ -1994,7 +2007,7 @@ def backward_timings(dev) -> dict:
     t_bytes = nbytes / PEAK_BYTES * 1e3
     bound_ms = max(t_tensor, t_cuda, t_bytes)
     rows["rwkv6_scan_bwd"] = dict(
-        shape=dict(B=b, T=t, H=h, N=n, dtype="bfloat16", out_dtype="float32"), variant=f"n{n}", rel_l2=rel,
+        shape=dict(B=b, T=t, H=h, N=n, dtype="bfloat16", out_dtype="float32"), variant=f"chunk{n}", rel_l2=rel,
         max_abs_err=max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want)), ops=ops,
         bytes=nbytes, library_ms=None, **timed(fns, dict(ms=10, plain_ms=1)),
         bound_ms=bound_ms, bound_by="bytes" if bound_ms == t_bytes else "operations",

@@ -1,6 +1,6 @@
 """Time a tree's RWKV6 scan kernel at rwkv6_3b's time-mix shapes (and, with --flash, its flash attention).
 
-    python scripts/time_scan.py [--src src] [--batch 4 1] [--split 4] [--flash] [--out chiprun_out/time_scan.json]
+    python scripts/time_scan.py [--src src] [--batch 4 1] [--split 4] [--flash] [--scan-bwd] [--out chiprun_out/time_scan.json]
 
 For each batch size: T=2048, H=40, N=64, bf16 r/k/v, float32 log-decay
 (-exp of a normal clipped to [-8, 6], the model's range) and bonus, float32
@@ -21,7 +21,12 @@ D=256), with its per-row error against the plain version and the variant
 the tree launched; then the flash backward kernel alone (``_launch_bwd`` on
 the forward's output and lse) at llama3_8b's training shape (B=2, S=2048,
 32/8 heads, D=128), with its per-tensor error against autograd through the
-plain version and the variant the tree launched.  Needs a CUDA card.
+plain version and the variant the tree launched.  ``--scan-bwd`` also
+times the scan's backward kernel alone (``_launch_bwd``) at rwkv6_3b's
+training shape (B=2, T=2048, H=40, N=64, bf16 r/k/v, float32 log-decay
+and dout, no initial state), with its per-tensor error against autograd
+through the plain version and the variant the tree launched.  Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -100,6 +105,55 @@ def flash_bwd_row(dev):
                 variant=launched, ms=min(runs), runs=runs, rel_l2=rel)
 
 
+def scan_bwd_row(dev):
+    """The scan's backward kernel alone at rwkv6_3b's training shape."""
+    from repro_torch import kernels
+    from repro_torch.kernels.rwkv6_scan import ops
+
+    b, t, h, n = 2, 2048, 40, 64
+    g = torch.Generator(device=dev).manual_seed(22)
+    r, k = ((0.5 * torch.randn(b, t, h, n, generator=g, device=dev)).bfloat16() for _ in range(2))
+    v = torch.randn(b, t, h, n, generator=g, device=dev).bfloat16()
+    logw = -torch.exp(torch.randn(b, t, h, n, generator=g, device=dev).clamp(-8.0, 6.0))
+    u = 0.1 * torch.randn(h, n, generator=g, device=dev)
+    do = torch.randn(b, t, h, n, generator=g, device=dev)
+    fn = lambda: ops._launch_bwd(r, k, v, logw, u, None, do)[:5]
+    before = dict(kernels.VARIANT_LAUNCHES["rwkv6_scan_bwd"])
+    got = fn()
+    torch.cuda.synchronize()
+    launched = [name for name, c in kernels.VARIANT_LAUNCHES["rwkv6_scan_bwd"].items() if c != before[name]]
+    leaves = [a.detach().requires_grad_(True) for a in (r, k, v, logw, u)]
+    out, _ = ops.rwkv6_wkv(*leaves, out_dtype=torch.float32, use_kernel=False)
+    want = torch.autograd.grad(out, leaves, do)
+    rel = {name: ((x.double() - y.double()).norm() / y.double().norm()).item()
+           for name, x, y in zip(("r", "k", "v", "logw", "u"), got, want)}
+    del leaves, out, want
+    runs = [time_ms(fn, 10), time_ms(fn, 10)]
+    return dict(kernel="rwkv6_scan_bwd", shape="rwkv6_3b_train", B=b, T=t, H=h, N=n, variant=launched,
+                ms=min(runs), runs=runs, rel_l2=rel, kernels_ms=kernel_split(fn))
+
+
+def kernel_split(fn, reps: int = 5) -> dict:
+    """Device ms per call of each CUDA kernel that ``fn`` launches, from
+    torch.profiler (empty where the profiler records no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if us and "CUDA" in str(getattr(evt, "device_type", "CUDA")):
+            out[evt.key[:80]] = us / 1e3 / reps
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"),
@@ -107,6 +161,7 @@ def main():
     ap.add_argument("--batch", type=int, nargs="+", default=[4, 1])
     ap.add_argument("--split", type=int, default=None, help="force the state split (1, 2 or 4)")
     ap.add_argument("--flash", action="store_true", help="also time the flash-attention forward")
+    ap.add_argument("--scan-bwd", action="store_true", help="also time the scan's backward kernel")
     ap.add_argument("--out", default=None, help="JSON record (default: none)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -145,6 +200,10 @@ def main():
         rec["runs"].append(row)
         del r, k, v, logw, got, want
     for row in flash_rows(dev) if args.flash else ():
+        print(json.dumps(row), flush=True)
+        rec["runs"].append(row)
+    if args.scan_bwd:
+        row = scan_bwd_row(dev)
         print(json.dumps(row), flush=True)
         rec["runs"].append(row)
     print(smi)

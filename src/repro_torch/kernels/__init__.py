@@ -7,7 +7,7 @@ splits each count by the variant of the kernel that the wrapper launched.
 The backward kernels (``flash_attention_bwd``, ``rwkv6_scan_bwd``) count
 one launch per backward call, by variant: flash's ``bwd_wgmma`` (TMA and
 wgmma), ``bwd_mma`` (mma.sync) or ``bwd_simple`` (CUDA cores), the scan's
-head dim (``n16/32/64``).
+chunk-parallel backward by head dim (``chunk16/32/64``).
 
 A wrapper counts where it launches.  Inside a CUDA graph capture
 (``recording``) a launch is recorded into the graph and does not run, so it
@@ -24,7 +24,7 @@ VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     "flash_attention": {"flash_wgmma": 0, "flash_mma": 0, "flash_simple": 0},
     "rwkv6_scan": {"split4": 0, "split2": 0, "split1": 0},
     "flash_attention_bwd": {"bwd_wgmma": 0, "bwd_mma": 0, "bwd_simple": 0},
-    "rwkv6_scan_bwd": {"n16": 0, "n32": 0, "n64": 0},
+    "rwkv6_scan_bwd": {"chunk16": 0, "chunk32": 0, "chunk64": 0},
 }
 LAUNCHES: Dict[str, int] = {name: 0 for name in VARIANT_LAUNCHES}
 _RECORDING: Optional[Dict[Tuple[str, str], int]] = None

@@ -6,12 +6,12 @@ a state kernel, on the current stream; the float32 scratch between them is
 allocated here), or raises: it never falls back to the plain version.  The plain version (``ref.py``) runs only
 for tensors that lie on the CPU, or when the caller asks for it with
 ``use_kernel=False``; autograd through it is the plain version of the
-backward.  When a gradient is needed (grad mode on and r, k, v, logw or u
-requiring one), the kernel runs inside ``RWKV6Scan``, an autograd Function
-whose backward launches ``rwkv6_scan_bwd.cu`` (counted as
-``rwkv6_scan_bwd``).  The training path starts from a zero state and drops
-the final state: an initial state that needs a gradient, or a gradient that
-reaches the final state, is refused, not silently dropped.
+backward.  When a gradient is needed (grad mode on and r, k, v, logw, u or
+the initial state requiring one), the kernel runs inside ``RWKV6Scan``, an
+autograd Function whose backward launches ``rwkv6_scan_bwd.cu`` (counted
+as ``rwkv6_scan_bwd``, variant ``chunk16/32/64`` by head dim): it takes
+the gradient that reaches the final state and returns the initial
+state's.
 """
 from __future__ import annotations
 
@@ -61,10 +61,10 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = load_library(BWD_SOURCE)
     fn = lib.rwkv6_scan_bwd_launch
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.rwkv6_scan_bwd_row_blocks.argtypes = [ctypes.c_int]
-    lib.rwkv6_scan_bwd_row_blocks.restype = ctypes.c_int
+    lib.rwkv6_scan_bwd_work_floats.argtypes = [ctypes.c_int]
+    lib.rwkv6_scan_bwd_work_floats.restype = ctypes.c_int
     return lib
 
 
@@ -81,18 +81,16 @@ def rwkv6_wkv(r, k, v, logw, u, *, state=None, out_dtype=None, use_kernel: bool 
     out_dtype = r.dtype if out_dtype is None else out_dtype
     if not use_kernel or r.device.type == "cpu":
         return _plain(r, k, v, logw, u, state, out_dtype)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in (r, k, v, logw, u)):
-        if state is not None and state.requires_grad:
-            raise ValueError("rwkv6_scan kernel: the initial state receives no gradient (the training path starts "
-                             "from zeros); detach it, or take the plain version with use_kernel=False")
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in (r, k, v, logw, u, state)):
         return RWKV6Scan.apply(r, k, v, logw, u, state, out_dtype)
     return _launch(r, k, v, logw, u, state, out_dtype)
 
 
 class RWKV6Scan(torch.autograd.Function):
-    """The kernel with its gradient with respect to r, k, v, logw and u: the
-    forward saves its inputs; the backward launches the backward kernel (or
-    raises: it has no plain fallback)."""
+    """The kernel with its gradient with respect to r, k, v, logw, u and
+    the initial state: the forward saves its inputs; the backward launches
+    the backward kernel on the gradients of the output and of the final
+    state (or raises: it has no plain fallback)."""
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, state, out_dtype):
@@ -103,14 +101,13 @@ class RWKV6Scan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, ds_fin):
-        if ds_fin is not None:
-            raise RuntimeError("rwkv6_scan kernel: a gradient reached the final state, which its backward does not "
-                               "take (the training path drops it); use use_kernel=False for such a loss")
         r, k, v, logw, u, state = ctx.saved_tensors
-        if dout is None:
+        if dout is None and ds_fin is None:
             return (None,) * 7
-        dr, dk, dv, dlogw, du = _launch_bwd(r, k, v, logw, u, state, dout.contiguous())
-        return dr, dk, dv, dlogw, du, None, None
+        dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device) if dout is None else dout.contiguous()
+        ds_fin = None if ds_fin is None else ds_fin.contiguous()
+        dr, dk, dv, dlogw, du, ds0 = _launch_bwd(r, k, v, logw, u, state, dout, ds_fin, with_ds0=ctx.needs_input_grad[5])
+        return dr, dk, dv, dlogw, du, ds0, None
 
 
 def _plain(r, k, v, logw, u, state, out_dtype):
@@ -165,30 +162,40 @@ def _launch(r, k, v, logw, u, state, out_dtype, split=None):
     return out, s_fin
 
 
-def _launch_bwd(r, k, v, logw, u, state, dout):
+def _launch_bwd(r, k, v, logw, u, state, dout, ds_fin=None, *, with_ds0=False):
     """The backward kernel: (dr, dk, dv in r's dtype, dlogw float32
-    [B,T,H,N], du float32 [H,N]) from the forward's inputs and the wkv
-    output's gradient ``dout`` (float32 or bfloat16)."""
+    [B,T,H,N], du float32 [H,N], dS0 float32 [B,H,N,N] or None) from the
+    forward's inputs, the wkv output's gradient ``dout`` (float32 or
+    bfloat16) and the final state's, ``ds_fin`` (float32 [B,H,N,N], or
+    None for zeros); dS0, the initial state's gradient, when ``with_ds0``."""
     _check(r, k, v, logw, u, state)
     if dout.shape != r.shape or dout.dtype not in _DTYPE_CODE or dout.device != r.device or not dout.is_contiguous():
         raise ValueError(f"rwkv6_scan backward needs dout contiguous, float32 or bfloat16, shaped as r "
                          f"{tuple(r.shape)}; got {tuple(dout.shape)} {dout.dtype} on {dout.device}")
+    if dout.data_ptr() % 16:
+        raise ValueError("rwkv6_scan backward reads dout in 16-byte pieces: it must be 16-byte aligned")
     dev = r.device
     b, t, h, n = r.shape
+    if ds_fin is not None and (tuple(ds_fin.shape) != (b, h, n, n) or ds_fin.dtype != torch.float32
+                               or ds_fin.device != dev or not ds_fin.is_contiguous()):
+        raise ValueError(f"rwkv6_scan backward needs ds_fin contiguous float32 [B,H,N,N] = {(b, h, n, n)} on {dev}; "
+                         f"got {tuple(ds_fin.shape)} {ds_fin.dtype} on {ds_fin.device}")
     lib = _bwd_library()
+    nc = -(-t // CHUNK)
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dlogw = torch.empty(r.shape, dtype=torch.float32, device=dev)
-    du_part = torch.empty((b, h, n), dtype=torch.float32, device=dev)
-    ckpt = torch.empty((b * h, -(-t // CHUNK), n, n), dtype=torch.float32, device=dev)  # each chunk's start state
-    dv_part = torch.empty((lib.rwkv6_scan_bwd_row_blocks(n),) + tuple(r.shape), dtype=torch.float32, device=dev)
+    du_part = torch.empty((b, h, nc, n), dtype=torch.float32, device=dev)  # per chunk
+    # per (batch, head, chunk): the increments of S and G, then the walk's states
+    work = torch.empty(b * h * nc * lib.rwkv6_scan_bwd_work_floats(n), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((b, h, n, n), dtype=torch.float32, device=dev) if with_ds0 else None
+    ptr = lambda a: None if a is None else a.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rwkv6_scan_bwd_launch(
         _DTYPE_CODE[r.dtype], _DTYPE_CODE[dout.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-        u.data_ptr(), None if state is None else state.data_ptr(), dout.data_ptr(), ckpt.data_ptr(),
-        dv_part.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(), du_part.data_ptr(),
-        b, t, h, n, stream,
+        u.data_ptr(), ptr(state), dout.data_ptr(), ptr(ds_fin), work.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dlogw.data_ptr(), du_part.data_ptr(), ptr(ds0), b, t, h, n, stream,
     )
     if err != 0:
         raise RuntimeError(f"rwkv6_scan backward kernel launch failed: cudaError {err} (B={b}, T={t}, H={h}, N={n})")
-    count_launch("rwkv6_scan_bwd", f"n{n}")
-    return dr, dk, dv, dlogw, du_part.sum(0)
+    count_launch("rwkv6_scan_bwd", f"chunk{n}")
+    return dr, dk, dv, dlogw, du_part.sum((0, 2)), ds0

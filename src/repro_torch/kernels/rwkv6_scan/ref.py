@@ -7,16 +7,18 @@ import torch
 def rwkv6_scan_ref(r, k, v, logw, u, state=None, *, out_dtype=None):
     """r,k,v,logw: [BH,T,N]; u: [BH,N]; state: [BH,N,N] or None (zeros).
     Returns (out [BH,T,N] in ``out_dtype``, by default r's dtype, final
-    state [BH,N,N] float32), all in float32 inside:
+    state [BH,N,N]), computed in float32 (float64 when r is float64, as
+    the tests' oracle runs it):
 
         out_t = r_t . (S_t + u * k_t^T v_t);  S_{t+1} = diag(w_t) S_t + k_t^T v_t
     """
     bh, t, n = r.shape
     dtype = r.dtype if out_dtype is None else out_dtype
-    r, k, v, u = r.float(), k.float(), v.float(), u.float()
-    w = torch.exp(logw.float())
-    s = torch.zeros((bh, n, n), dtype=torch.float32, device=r.device) if state is None else state.float()
-    out = torch.empty((bh, t, n), dtype=torch.float32, device=r.device)
+    ct = torch.promote_types(r.dtype, torch.float32)
+    r, k, v, u = r.to(ct), k.to(ct), v.to(ct), u.to(ct)
+    w = torch.exp(logw.to(ct))
+    s = torch.zeros((bh, n, n), dtype=ct, device=r.device) if state is None else state.to(ct)
+    out = torch.empty((bh, t, n), dtype=ct, device=r.device)
     for i in range(t):
         kv = k[:, i, :, None] * v[:, i, None, :]
         out[:, i] = torch.einsum("bn,bnm->bm", r[:, i], s + u[:, :, None] * kv)

@@ -37,23 +37,12 @@
 //   did the decay work in turn with the state, exchanging quarters through
 //   distributed shared memory: its per-chunk chain, ~5 us, kept it at
 //   0.98 ms for rwkv6_3b's B = 4 prefill shape; PERF.md has both.)
-// * Exponents from direct sums.  The TPU kernel (and the first CUDA version
-//   of this one) took every exponent as a difference of chunk-wide cumulative
-//   sums, L_t - L_i.  The model's log-decay reaches -e^6 per step, so |L|
-//   reaches ~1.3e4 within a chunk and such a difference carries an absolute
-//   error of an ulp of |L| (~1e-3) even when it should be small.  Here
-//   every exponent is a sum of logw over exactly its own range, all terms of
-//   one sign, so it keeps the precision of its own size.  Lane = token:
-//   warp-shuffle scans within sub-chunks of 8 give each token's exclusive
-//   prefix and suffix there; the whole sub-chunks' sums T0..T3 are summed
-//   directly in the runs each factor needs.  So
-//     exp(prefix before t)  = exp(prefix within t's sub-chunk) * exp(whole sub-chunks before),
-//     exp(suffix after i)   = exp(suffix within i's sub-chunk) * exp(whole sub-chunks after),
-//   pairs (t, i) in one sub-chunk take exp of a running sum over (i, t), and
-//   pairs in sub-chunks b < a factor as exp(prefix of a before t) *
-//   exp(whole sub-chunks between) * exp(suffix of b after i).  Each factor
-//   is <= 1, so nothing overflows.  That takes 2 C N + 28 N C / 8 + 10 N
-//   exponentials per chunk instead of C^2 N / 2.
+// * Exponents from direct sums (scan.cuh, sub_decay).  The TPU kernel (and
+//   the first CUDA version of this one) took every exponent as a difference
+//   of chunk-wide cumulative sums, L_t - L_i; here every exponent is a sum
+//   of logw over exactly its own range, factored over sub-chunks of 8.
+//   That takes 2 C N + 28 N C / 8 + 10 N exponentials per chunk instead of
+//   C^2 N / 2.
 // * No clip.  The TPU kernel clips each pairwise exponent to [-60, 0]
 //   before exp; the upper end never binds for i < t and the lower end
 //   lifts weights below e^-60 ~ 8.8e-27 to e^-60.  This kernel keeps the
@@ -76,110 +65,12 @@
 // time than reading the inputs and writing the output, so the bound is the
 // bytes (chip_smoke.py phase 9 states both).  `work` adds 2 C N + N^2 + N
 // floats per chunk, written once and read once (r_dec once per state CTA).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "scan.cuh"
 
 namespace {
 
-constexpr int C = 32;        // chunk length: one token per lane
-constexpr int SUB = 8;       // sub-chunk of the score factoring
-constexpr int WARPS = 8;     // chunk kernel
-constexpr int THREADS = 32 * WARPS;
 constexpr int STATE_THREADS = 192;  // state kernel: 4 warps on the output (2 row tiles x 2 column halves), 2 on S
 constexpr int STAGES = 2;           // state kernel's cp.async ring: chunk c + 1 arrives while chunk c computes
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// exp(x) for x <= 0 as one ex2.approx (relative error ~2^-22; results
-// below float32's normal range flush to zero, as a weight that small is)
-__device__ __forceinline__ float exp_neg(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
-  return y;
-}
-
-// The TF32 part of x rounded to nearest: cvt.rna.tf32.f32 without the
-// inf/nan guard that the compiler emits for it (the operands are finite)
-__device__ __forceinline__ uint32_t tf32_hi(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
-
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// An A fragment split for TF32 passes: hi rounded to TF32, lo the rest (the
-// tensor core reads its top 19 bits: 2^-11 of lo, 2^-22 of a)
-struct SplitA {
-  uint32_t hi[4], lo[4];
-};
-__device__ __forceinline__ SplitA split_a(const float* a) {
-  SplitA s;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    s.hi[i] = tf32_hi(a[i]);
-    s.lo[i] = __float_as_uint(a[i] - __uint_as_float(s.hi[i]));
-  }
-  return s;
-}
-
-// d += a b for one (16 x 8) tile at float32 accuracy: b split like a unless
-// B_EXACT (b already a TF32 value, as bf16 is); the lo passes first.
-template <bool B_EXACT>
-__device__ __forceinline__ void mma_split(float* d, const SplitA& a, const float* b) {
-  uint32_t bh[2], bl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    bh[i] = B_EXACT ? __float_as_uint(b[i]) : tf32_hi(b[i]);
-    bl[i] = B_EXACT ? 0u : __float_as_uint(b[i] - __uint_as_float(bh[i]));
-  }
-  mma_tf32(d, a.lo, bh);
-  if (!B_EXACT) mma_tf32(d, a.hi, bl);
-  mma_tf32(d, a.hi, bh);
-}
-
-// A row of NT (16 x 8) tiles: acc[j] += A[rows r0, r0 + 8][0:K] B[0:K][m0 + 8 j],
-// A at A[row * lda + k], B at B[k * ldb + col]; (r0, m0) = (first row, first
-// column) + g, the lane's fragment row and column.  Each A fragment is split
-// once for the whole row.
-template <bool B_EXACT, int NT, int K>
-__device__ __forceinline__ void mma_row(float (*acc)[4], const float* A, int lda, int r0, const float* B, int ldb,
-                                        int m0, int tg) {
-#pragma unroll
-  for (int ks = 0; ks < K / 8; ++ks) {
-    const int kc = 8 * ks + tg;
-    const float a[4] = {A[r0 * lda + kc], A[(r0 + 8) * lda + kc], A[r0 * lda + kc + 4], A[(r0 + 8) * lda + kc + 4]};
-    const SplitA sa = split_a(a);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float b[2] = {B[kc * ldb + m0 + 8 * j], B[(kc + 4) * ldb + m0 + 8 * j]};
-      mma_split<B_EXACT>(acc[j], sa, b);
-    }
-  }
-}
 
 // Offsets (floats) of one chunk's record in `work`
 template <int N>
@@ -237,64 +128,23 @@ __global__ void __launch_bounds__(THREADS, 2)
   // ---- loads: r, k, logw channel-major, v row-major; rows past T are
   // zeros.  16-byte pieces, all in flight before the first is used.
   {
-    constexpr int VE = 16 / sizeof(T), PV = C * N / VE, PL = C * N / 4;
-    constexpr int NV = (PV + THREADS - 1) / THREADS, NL = (PL + THREADS - 1) / THREADS;
-    uint4 rq[NV], kq[NV], vq[NV];
-    float4 lq[NL];
-#pragma unroll
-    for (int w = 0; w < NV; ++w) {
-      const int e = (tid + w * THREADS) * VE, t = e / N;
-      rq[w] = kq[w] = vq[w] = make_uint4(0u, 0u, 0u, 0u);
-      if (e < C * N && t < cl) {
-        const size_t off = base + static_cast<size_t>(t) * row + e % N;
-        rq[w] = *reinterpret_cast<const uint4*>(r + off);
-        kq[w] = *reinterpret_cast<const uint4*>(k + off);
-        vq[w] = *reinterpret_cast<const uint4*>(v + off);
-      }
-    }
-#pragma unroll
-    for (int w = 0; w < NL; ++w) {
-      const int e = (tid + w * THREADS) * 4, t = e / N;
-      lq[w] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (e < C * N && t < cl) lq[w] = *reinterpret_cast<const float4*>(logw + base + static_cast<size_t>(t) * row + e % N);
-    }
-#pragma unroll
-    for (int w = 0; w < NV; ++w) {
-      const int e = (tid + w * THREADS) * VE, t = e / N, n0 = e % N;
-      if (e < C * N) {
-        const T* pr = reinterpret_cast<const T*>(&rq[w]);
-        const T* pk = reinterpret_cast<const T*>(&kq[w]);
-        const T* pv = reinterpret_cast<const T*>(&vq[w]);
-#pragma unroll
-        for (int i = 0; i < VE; ++i) {
-          sm[L::rT + (n0 + i) * L::CP + t] = to_f32(pr[i]);
-          sm[L::kT + (n0 + i) * L::CP + t] = to_f32(pk[i]);
-          sm[L::vs + t * L::VS + n0 + i] = to_f32(pv[i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int w = 0; w < NL; ++w) {
-      const int e = (tid + w * THREADS) * 4, t = e / N, n0 = e % N;
-      if (e < C * N) {
-        sm[L::lwT + n0 * L::CP + t] = lq[w].x;
-        sm[L::lwT + (n0 + 1) * L::CP + t] = lq[w].y;
-        sm[L::lwT + (n0 + 2) * L::CP + t] = lq[w].z;
-        sm[L::lwT + (n0 + 3) * L::CP + t] = lq[w].w;
-      }
-    }
+    Pieces<T, N> pr, pk, pv;
+    Pieces<float, N> pl;
+    pr.load(r, base, row, cl, tid);
+    pk.load(k, base, row, cl, tid);
+    pv.load(v, base, row, cl, tid);
+    pl.load(logw, base, row, cl, tid);
+    pr.template store<true>(sm + L::rT, L::CP, tid);
+    pk.template store<true>(sm + L::kT, L::CP, tid);
+    pv.template store<false>(sm + L::vs, L::VS, tid);
+    pl.template store<true>(sm + L::lwT, L::CP, tid);
   }
   if (tid < N) sm[L::us + tid] = u[h * N + tid];
   __syncthreads();
 
   // ---- phase 1: decay sums; warp w takes channels w, w + 8, ...; lane = token
   {
-    const int sl = lane & (SUB - 1), sa = lane / SUB;
-    // the runs of whole sub-chunks T0..T3 that the factors need, one per
-    // lane 0..9 as a 4-bit mask of the T_k it sums: before sub-chunk 1, 2,
-    // 3; after 0, 1, 2; the whole chunk (exp(L_C)); between 0 and 2, 1 and
-    // 3, 0 and 3
-    const unsigned runs = lane < 10 ? static_cast<unsigned>(0x642F8CE731ull >> (4 * lane)) & 15u : 0u;
+    const int sl = lane & (SUB - 1);
     float x[CW], rv[CW], kv[CW];
 #pragma unroll
     for (int q = 0; q < CW; ++q) {
@@ -310,33 +160,14 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int q = 0; q < CW; ++q) {
       const int n = warp + WARPS * q;
-      float sinc = x[q], ssuf = x[q];  // inclusive sums within the lane's sub-chunk
-#pragma unroll
-      for (int d = 1; d < SUB; d <<= 1) {
-        const float y = __shfl_up_sync(FULL, sinc, d, SUB);
-        const float z = __shfl_down_sync(FULL, ssuf, d, SUB);
-        if (sl >= d) sinc += y;
-        if (sl + d < SUB) ssuf += z;
-      }
-      // exclusive sums: the neighbour's inclusive sum, never a difference
-      float sP = __shfl_up_sync(FULL, sinc, 1, SUB);
-      float sQ = __shfl_down_sync(FULL, ssuf, 1, SUB);
-      if (sl == 0) sP = 0.f;
-      if (sl == SUB - 1) sQ = 0.f;
-      const float T0 = __shfl_sync(FULL, sinc, SUB - 1), T1 = __shfl_sync(FULL, sinc, 2 * SUB - 1);
-      const float T2 = __shfl_sync(FULL, sinc, 3 * SUB - 1), T3 = __shfl_sync(FULL, sinc, 4 * SUB - 1);
-      const float run = (((runs & 1u ? T0 : 0.f) + (runs & 2u ? T1 : 0.f)) + (runs & 4u ? T2 : 0.f)) +
-                        (runs & 8u ? T3 : 0.f);
-      const float fe = exp_neg(run);
-      const float before = __shfl_sync(FULL, fe, sa == 0 ? 0 : sa - 1);
-      const float after = __shfl_sync(FULL, fe, sa == 3 ? 0 : sa + 3);
-      const float ar = rv[q] * exp_neg(sP), bk = kv[q] * exp_neg(sQ);
+      const SubDecay dc = sub_decay(x[q], lane);
+      const float ar = rv[q] * dc.eP, bk = kv[q] * dc.eQ;
       sm[L::arT + n * L::AS + lane] = ar;
       sm[L::bkT + n * L::AS + lane] = bk;
-      sm[L::rdT + n * L::CP + lane] = sa == 0 ? ar : ar * before;
-      sm[L::kdT + n * L::KT + lane] = sa == 3 ? bk : bk * after;
-      if (lane == 6) sm[L::wc + n] = fe;
-      if (lane >= 7 && lane < 10) sm[L::dm + (lane - 7) * N + n] = fe;
+      sm[L::rdT + n * L::CP + lane] = ar * dc.before;
+      sm[L::kdT + n * L::KT + lane] = bk * dc.after;
+      if (lane == 6) sm[L::wc + n] = dc.fe;
+      if (lane >= 7 && lane < 10) sm[L::dm + (lane - 7) * N + n] = dc.fe;
       ps[0] += rv[q] * kv[q] * sm[L::us + n];  // the bonus
     }
     // diagonal sub-blocks: pair (t, t - d), exponent the running sum of
@@ -359,62 +190,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
   __syncthreads();
 
-  // ---- phase 2: the scores [C][C].  Warps 0-3: the six blocks below the
-  // diagonal sub-blocks as four (16 x 8) tensor-core tiles over the N
-  // channels, A = decayed r times the factor of the whole sub-chunks
-  // between, B = decayed k: column block 0 with rows 8-23 (blocks (1,0),
-  // (2,0)) and rows 24-31 (block (3,0), its rows taken twice), column block
-  // 1 with rows 16-31 ((2,1), (3,1)), column block 2 with rows 24-31.
-  // Warps 4-7: the diagonal sub-blocks from the warps' partials and the
-  // zeros above them.
-  if (warp < 4) {
-    const int cb = warp < 2 ? 0 : warp - 1;                   // column sub-chunk b
-    const int lo_row = warp == 0 ? 8 : warp == 2 ? 16 : 24;  // first row of the tile
-    const int hi_row = warp == 0 ? 16 : warp == 2 ? 24 : 24;  // first row of its second half
-    const int ra = lo_row + g, rb = hi_row + g;               // the lane's two fragment rows
-    // factor of the whole sub-chunks between row sub-chunk a and cb: none
-    // next door, Dm[0] for (2,0), Dm[1] for (3,1), Dm[2] for (3,0)
-    auto factor = [&](int t) -> int {
-      const int d = t / SUB - cb;
-      return d == 1 ? -1 : d == 2 ? cb : 2;
-    };
-    const int fa = factor(ra), fb = factor(rb);
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int ks = 0; ks < N / 8; ++ks) {
-      const int kc = 8 * ks + tg;
-      const float* dm = sm + L::dm;
-      const float a[4] = {
-          sm[L::arT + kc * L::AS + ra] * (fa < 0 ? 1.f : dm[fa * N + kc]),
-          sm[L::arT + kc * L::AS + rb] * (fb < 0 ? 1.f : dm[fb * N + kc]),
-          sm[L::arT + (kc + 4) * L::AS + ra] * (fa < 0 ? 1.f : dm[fa * N + kc + 4]),
-          sm[L::arT + (kc + 4) * L::AS + rb] * (fb < 0 ? 1.f : dm[fb * N + kc + 4])};
-      const float bq[2] = {sm[L::bkT + kc * L::AS + SUB * cb + g], sm[L::bkT + (kc + 4) * L::AS + SUB * cb + g]};
-      mma_split<false>(acc, split_a(a), bq);
-    }
-    const int col = SUB * cb + 2 * tg;
-    sm[L::sc + ra * L::SC + col] = acc[0];
-    sm[L::sc + ra * L::SC + col + 1] = acc[1];
-    if (warp != 1 && warp != 3) {  // the tiles whose second half is rows of their own
-      sm[L::sc + rb * L::SC + col] = acc[2];
-      sm[L::sc + rb * L::SC + col + 1] = acc[3];
-    }
-  } else {
-    for (int e = tid - 128; e < 4 * SUB * SUB + 6 * SUB * SUB; e += 128) {
-      if (e < 4 * SUB * SUB) {  // diagonal sub-block sa, pair (rr, cc)
-        const int sa = e >> 6, rr = (e >> 3) & 7, cc = e & 7, t = SUB * sa + rr;
-        float s = 0.f;
-        if (cc <= rr) {
-#pragma unroll
-          for (int w = 0; w < WARPS; ++w) s += sm[L::dgp + (w * SUB + rr - cc) * C + t];
-        }
-        sm[L::sc + t * L::SC + SUB * sa + cc] = s;
-      } else {  // above the diagonal sub-blocks: row sub-chunk b < column sub-chunk a
-        const int f = e - 4 * SUB * SUB, pb = f >> 6, sa = pb < 1 ? 1 : pb < 3 ? 2 : 3, sb = pb - (sa * (sa - 1)) / 2;
-        sm[L::sc + (SUB * sb + ((f >> 3) & 7)) * L::SC + SUB * sa + (f & 7)] = 0.f;
-      }
-    }
-  }
+  // ---- phase 2: the scores [C][C] (scan.cuh)
+  chunk_scores<N, L::AS, L::SC>(sm + L::arT, sm + L::bkT, sm + L::dm, sm + L::dgp, sm + L::sc, tid);
   __syncthreads();
 
   // ---- phase 3: tensor-core products, fragments straight to `work`.

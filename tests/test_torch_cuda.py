@@ -1423,7 +1423,7 @@ def test_scan_backward_matches_plain(card, dtype, b, t, h, n):
     before = dict(kernels.VARIANT_LAUNCHES["rwkv6_scan_bwd"])
     got = _scan_grads(r, k, v, logw, u, do, True)
     torch.cuda.synchronize()
-    assert kernels.VARIANT_LAUNCHES["rwkv6_scan_bwd"] == {**before, f"n{n}": before[f"n{n}"] + 1}
+    assert kernels.VARIANT_LAUNCHES["rwkv6_scan_bwd"] == {**before, f"chunk{n}": before[f"chunk{n}"] + 1}
     want = _scan_grads(r, k, v, logw, u, do, False)
     for name, gt, w, x in zip(("r", "k", "v", "logw", "u"), got, want, (r, k, v, logw, u)):
         assert gt.dtype == x.dtype and gt.shape == x.shape
@@ -1449,17 +1449,54 @@ def test_scan_backward_is_deterministic(card):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def test_scan_function_refuses_state_gradients(card):
+def _scan_state_grads(r, k, v, logw, u, s0, do, ds_fin, use_kernel):
+    """Gradients of sum(out * do) + sum(s_fin * ds_fin) (either weight may be
+    None: no such term) with respect to r, k, v, logw, u and s0."""
     from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv
 
-    r, k, v, logw, u, _ = _scan_inputs(card, torch.float32, 1, 40, 2, 16, seed=8)
-    r.requires_grad_(True)
-    s0 = torch.zeros(1, 2, 16, 16, device=card, requires_grad=True)
-    with pytest.raises(ValueError, match="initial state"):
-        rwkv6_wkv(r, k, v, logw, u, state=s0, out_dtype=torch.float32)
-    out, s_fin = rwkv6_wkv(r, k, v, logw, u, out_dtype=torch.float32)
-    with pytest.raises(RuntimeError, match="final state"):
-        (out.sum() + s_fin.sum()).backward()
+    leaves = [a.detach().requires_grad_(True) for a in (r, k, v, logw, u)]
+    st = None if s0 is None else s0.detach().requires_grad_(True)
+    out, s_fin = rwkv6_wkv(*leaves, state=st, out_dtype=torch.float32, use_kernel=use_kernel)
+    terms = [(x, w) for x, w in ((out, do), (s_fin, ds_fin)) if w is not None]
+    torch.autograd.backward([x for x, _ in terms], [w for _, w in terms])
+    return [a.grad for a in leaves] + [None if st is None else st.grad]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,n", [(2, 70, 3, 64), (2, 1, 3, 16)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_scan_backward_state_gradients_match_plain(card, dtype, b, t, h, n, with_state):
+    """The initial state's gradient and the loss's share through the final
+    state against autograd through the plain version: three chunks (the
+    last ragged) or one token, from a carried initial state that takes a
+    gradient or from zeros.  dS0 is held to the float32 limit."""
+    r, k, v, logw, u, do = _scan_inputs(card, dtype, b, t, h, n, seed=t * n + 3)
+    g = torch.Generator(device=card).manual_seed(t + n)
+    ds_fin = torch.randn(b, h, n, n, generator=g, device=card)
+    s0 = 0.1 * torch.randn(b, h, n, n, generator=g, device=card) if with_state else None
+    before = dict(kernels.VARIANT_LAUNCHES["rwkv6_scan_bwd"])
+    got = _scan_state_grads(r, k, v, logw, u, s0, do, ds_fin, True)
+    torch.cuda.synchronize()
+    assert kernels.VARIANT_LAUNCHES["rwkv6_scan_bwd"] == {**before, f"chunk{n}": before[f"chunk{n}"] + 1}
+    want = _scan_state_grads(r, k, v, logw, u, s0, do, ds_fin, False)
+    for name, gt, w in zip(("r", "k", "v", "logw", "u", "s0"), got, want):
+        if name == "s0" and not with_state:
+            assert gt is None and w is None
+            continue
+        tol = SCAN_BWD_TOL[dtype if name in "rkv" else torch.float32]
+        assert _l2_rel(gt, w, do.double().norm().item()) <= tol, name
+
+
+def test_scan_backward_loss_on_the_final_state_only(card):
+    """A loss on s_fin alone (no gradient reaches the output): the backward
+    runs on a zero dout and matches the plain version."""
+    r, k, v, logw, u, _ = _scan_inputs(card, torch.float32, 1, 90, 2, 32, seed=12)
+    ds_fin = torch.randn(1, 2, 32, 32, generator=torch.Generator(device=card).manual_seed(13), device=card)
+    s0 = 0.1 * ds_fin.flip(-1)
+    got = _scan_state_grads(r, k, v, logw, u, s0, None, ds_fin, True)
+    want = _scan_state_grads(r, k, v, logw, u, s0, None, ds_fin, False)
+    for name, gt, w in zip(("r", "k", "v", "logw", "u", "s0"), got, want):
+        assert _l2_rel(gt, w) <= SCAN_BWD_TOL[torch.float32], name
 
 
 def test_backward_kernels_raise_rather_than_fall_back(card, monkeypatch):
