@@ -145,8 +145,31 @@ Phases (any failure exits non-zero):
      against its plain version (flash's bwd_wgmma also against bwd_mma
      forced and the backward of scaled_dot_product_attention) with its
      bound; then
-     launch/train.main --arch llama3_8b --layers 4 --steps 3;
-  21. summary lines, then {"ok": true, "device": {...}} as the last line.
+     launch/train.main --arch llama3_8b --layers 4 --steps 3 at B=2 x S=2048
+     (phase 21 reuses its losses);
+  21. training under a data x model mesh, ranks sharing the card under
+     torchrun (NCCL for one rank, gloo for two: launch/mesh.backend_for):
+     gloo's collectives on CUDA tensors probed beside the first run
+     (scripts/gloo_cuda_probe.py; the functional all-gather, which kills
+     the process, is routed through c10d by scripts/mesh_runs.py); the
+     float32 gradients of llama3_8b (1x2) and rwkv6_3b (1x2, 2x1), 1
+     layer, against one device per tensor (scripts/mesh_grads.py, MESH_GRAD_TOL),
+     with the bf16 control and planted faults in the wrappers' sharding
+     above the limit; through the train CLI (--record), llama3_8b (4
+     layers) on a 1x1 NCCL mesh and on a 1x2 gloo mesh, rwkv6_3b (4 of 32
+     layers) on a 1x2 gloo mesh, B=2 x S=2048, 3 steps: each rank's
+     backend, step seconds, peak memory and launches by variant, held to
+     each forward kernel twice per layer and each backward once, to the
+     local heads each launch took (16 q / 4 kv heads at 1x2, 20 scan
+     heads), and the losses to the same CLI on one device (MESH_LOSS_TOL;
+     beside rwkv6_3b's, one device over two microbatches, MESH_REORDER);
+     whisper_tiny saved at 1x2 after 2 steps and resumed at 2x1 (FSDP over
+     "data") for 2 more, against 4 steps on one device, the gloo runs all
+     in one world (scripts/mesh_runs.py); the dry run's dense DMRG step at
+     m=4096 on a 1x1 mesh in float32 and bf16, timed beside the flops
+     launch/costs.py counts; one launch of each training kernel at a 1x2
+     rank's local heads timed beside all heads;
+  22. summary lines, then {"ok": true, "device": {...}} as the last line.
 Needs a CUDA card; exits non-zero without one, printing no result.
 """
 from __future__ import annotations
@@ -259,7 +282,10 @@ FAMILIES = {
 # [B, H, S, S] scores and the plain scan's T-step autograd loop).
 TRAIN_ARCHS = {"llama3_8b": dict(layers=4, f32_layers=1), "rwkv6_3b": dict(layers=None, f32_layers=1)}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
-TRAIN_CLI = ["--arch", "llama3_8b", "--layers", "4", "--steps", "3"]
+# the train CLI at the training shape; phase 21's one-device reference of
+# llama3_8b's meshes (the same arguments: its run is reused)
+TRAIN_CLI = ["--arch", "llama3_8b", "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--steps",
+             str(TRAIN_STEPS), "--seed", "0", "--layers", "4"]
 # Backward kernels vs autograd through their plain versions, per tensor
 # ||got - want|| / ||want||.  float32: the sums run in other orders (read
 # 2.0e-6 and 6.2e-7 on an H100).  bf16: each side rounds its gradients (and
@@ -274,6 +300,50 @@ BWD_TOL = {"flash_attention_bwd": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
 # H100); a planted fault in the backward kernel's output (5.1e-2, 0.12) and
 # the control, bf16 weights against float32 (0.18, 0.30), must read above it.
 TRAIN_GRAD_TOL = 1e-4
+# Phase 21: training under a data x model mesh, every world through the
+# train CLI under torchrun (ranks share the card: NCCL at a world of one,
+# gloo beyond), each against the same CLI on one device (same seed, batch
+# and steps).  (label, ranks, backend, --mesh-model, arch, --layers).
+# rwkv6_3b is cut to 4 of its 32 layers for time, not memory: at 32 its
+# 1x2 steps took 18.7-30.5 s over gloo (peak 24.1 GB a rank, so two fit),
+# at 8 4.3-9.6 s (NVIDIA H100 80GB HBM3, 700 W), which would take the phase
+# past its 150 s and the script near its 1200 s limit.
+MESH_RUNS = (("llama3_8b 1x1 nccl", 1, "nccl", 1, "llama3_8b", 4),
+             ("llama3_8b 1x2 gloo", 2, "gloo", 2, "llama3_8b", 4),
+             ("rwkv6_3b 1x2 gloo", 2, "gloo", 2, "rwkv6_3b", 4))
+MESH_BATCH, MESH_SEQ, MESH_STEPS = 2, 2048, 3
+# Restore onto another mesh: whisper_tiny at full width (a small checkpoint)
+# saved after 2 steps at 1x2, resumed at 2x1 (FSDP over "data") for 2 more.
+RESUME_CLI = ["--arch", "whisper_tiny", "--global-batch", "2", "--seq-len", "448"]
+# Mesh losses against one device, relative, the first step's and the later
+# ones': in bf16 the mesh computes the same products on column splits,
+# reduces partial sums in other orders and takes the cross entropy
+# vocab-parallel, so the first loss (the same weights) differs by bf16
+# rounding (read 7e-6 for llama3_8b, 3.1e-4 for rwkv6_3b, whose group norm
+# magnifies it), and the later ones by what the steps make of it: by step
+# 3 5.7e-5 for llama3_8b and 1.51e-3 for rwkv6_3b (4 layers, NVIDIA H100
+# 80GB HBM3, 700 W), where one device with the batch's gradient summed
+# over two microbatches (MESH_REORDER, reported beside) drifts 7.7e-5, so
+# reduction order alone does not explain rwkv6_3b's.  The loss is a
+# coarse check, 6.6x above that reading: at random init it hardly feels a
+# wrong attention or wkv output; the float32 gradients below are the fine one.
+MESH_LOSS_TOL = (1e-3, 1e-2)
+MESH_REORDER = ("rwkv6_3b", 4)
+# Phase 21's float32 gradients of mesh training against one device, per
+# tensor, 1 layer deep at B x S = MESH_BATCH x MESH_SEQ on the meshes of
+# MESH_GRAD_ARCHS (scripts/mesh_grads.py: the same kernels on local shards; every u drawn
+# nonzero).  The bf16 control and the planted faults in the wrappers'
+# sharding (a wrong KV or u slice, u's gradient not summed over the batch
+# shards) must read above the limit.  Read on the H100 (700 W): sound
+# 2.6e-6 to 1.8e-5, control 9.4e-3 (llama3_8b) and 6.3e-2 (rwkv6_3b),
+# faults 0.57-1.43; llama3_8b's 2x1 reading (2.6e-6) took 33.5 s of
+# gloo-staged float32 gathers and is left to the CPU tests.
+MESH_GRAD_TOL = 2e-4
+MESH_GRAD_ARCHS = {"llama3_8b": "1x2", "rwkv6_3b": "1x2,2x1"}
+# Phase 21 (d): the dense DMRG Davidson step of the dry run's cells on one
+# card (a 1x1 mesh), spins (d=2, k=30) at m=4096: each of its three
+# m^2 k d^2 intermediates takes 8 GB in float32
+MESH_DMRG = dict(m=4096, d=2, k=30)
 
 
 def log(*args):
@@ -1657,16 +1727,12 @@ def train_path(dev):
     rec["runs"] = {arch: train_run(arch, dev, spec["layers"]) for arch, spec in TRAIN_ARCHS.items()}
     rec["timings"] = backward_timings(dev)
     # the CLI, in process, as a user would start it
-    from repro_torch.launch import train as train_cli
-
-    buf = io.StringIO()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as ckpt, contextlib.redirect_stdout(buf):
-        losses = train_cli.main(TRAIN_CLI + ["--checkpoint-dir", ckpt])
+    losses = _one_device(TRAIN_CLI, dev)["losses"]
     rec["cli"] = dict(argv=TRAIN_CLI, seconds=time.perf_counter() - t0, losses=losses)
     log(f"  CLI {' '.join(TRAIN_CLI)}: {rec['cli']['seconds']:.1f} s, losses {[round(x, 4) for x in losses]}")
-    if len(losses) != 3 or not all(np.isfinite(losses)):
-        fail(f"the train CLI returned losses {losses}; output {buf.getvalue()[-1500:]!r}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"the train CLI returned losses {losses}")
     return rec
 
 
@@ -1941,6 +2007,329 @@ def train_run(arch: str, dev, layers) -> dict:
                peak_gib=max(r["peak_gib"] for r in rec["steps"]))
     rec["tokens_s"] = TRAIN_BATCH * TRAIN_SEQ / rec["step_s"]
     return rec
+
+
+# ---------------------------------------------------------------- phase 21
+def mesh_path(dev):
+    """Training under a mesh (see phase 21 above): the gloo probe beside the
+    NCCL world; then every gloo run of MESH_RUNS and the save and resume in
+    one gloo world of 2 (scripts/mesh_runs.py: one start-up for all), each
+    against one device; the dense DMRG step of the dry run timed beside the
+    flops it counts; the kernels at a rank's local heads."""
+    probe = gloo_probe_start()  # beside the one-device run and the NCCL world: a few small collectives
+    nccl = [spec for spec in MESH_RUNS if spec[2] == "nccl"]
+    gloo = [spec for spec in MESH_RUNS if spec[2] == "gloo"]
+    rec = {"runs": []}
+    for label, world, backend, mm, arch, layers in nccl:
+        ref = _one_device(_mesh_argv(arch, layers), dev)
+        out = ROOT / "chiprun_out" / f"mesh_{label.replace(' ', '_')}"
+        ranks, wall = torchrun(world, ["-m", "repro_torch.launch.train", *_mesh_argv(arch, layers),
+                                       *_mesh_flags(mm, out)], out)
+        rec["runs"].append(mesh_check(label, world, backend, mm, arch, layers, ranks, ref, wall))
+    rec["gloo_probe"] = gloo_probe_end(*probe)
+    refs = [_one_device(_mesh_argv(arch, layers), dev) for _, _, _, _, arch, layers in gloo]
+    resume_ref = _one_device(RESUME_CLI + ["--steps", "4", "--seed", "0"], dev)
+    reorder = _one_device(_mesh_argv(*MESH_REORDER), dev, n_micro=2)
+    out = ROOT / "chiprun_out" / "mesh_gloo"
+    ck = tempfile.mkdtemp(prefix="mesh_resume_ck_")  # the checkpoint stays on that machine
+    # the gradient checks first, while the world's memory is its own
+    groups = [["grads", "--arch", arch, "--layers", "1", "--global-batch", str(MESH_BATCH), "--seq-len", str(MESH_SEQ),
+               "--meshes", meshes, "--out", str(out / f"grads_{arch}")] for arch, meshes in MESH_GRAD_ARCHS.items()]
+    groups += [[*_mesh_argv(arch, layers), *_mesh_flags(mm, out / label.replace(" ", "_"))]
+               for label, _, backend, mm, arch, layers in gloo]
+    common = [*RESUME_CLI, "--seed", "0", "--log-every", "0", "--checkpoint-dir", ck]
+    groups += [common + ["--mesh-model", "2", "--steps", "2", "--checkpoint-every", "2", "--record", str(out / "first")],
+               common + ["--mesh-model", "1", "--steps", "4", "--resume", "auto", "--record", str(out / "resumed")]]
+    argv = [str(ROOT / "scripts" / "mesh_runs.py")]
+    for g in groups:
+        argv += (["---"] if len(argv) > 1 else []) + g
+    _, wall = torchrun(2, argv, out / "first", timeout=900)
+    import shutil
+
+    shutil.rmtree(ck, ignore_errors=True)
+    read = lambda d: [json.loads((out / d / f"{r}.json").read_text()) for r in range(2)]
+    for (label, world, backend, mm, arch, layers), ref in zip(gloo, refs):
+        rec["runs"].append(mesh_check(label, world, backend, mm, arch, layers, read(label.replace(" ", "_")), ref, None))
+    rec["gloo_world_s"] = wall
+    rec["grads"] = {arch: mesh_grad_check(arch, read(f"grads_{arch}")) for arch in MESH_GRAD_ARCHS}
+    rec["reorder"] = mesh_reorder(rec["runs"], reorder)
+    rec["resume"] = mesh_resume_check(read("first"), read("resumed"), resume_ref)
+    rec["dmrg"] = dmrg_cell_on_card(dev)
+    rec["local_heads"] = local_head_timings(dev)
+    return rec
+
+
+def local_head_timings(dev) -> dict:
+    """One launch of each training kernel at a 1x2 rank's local heads
+    beside the same launch at all heads (B=2 x S=2048, bf16; CUDA-event
+    means): flash forward and backward at llama3_8b's 16 q / 4 kv heads
+    against 32 / 8, the scan forward and backward at rwkv6_3b's 20 heads
+    against 40."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv6_scan import ops as scan_ops
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for label, (h, hkv) in (("local", (16, 4)), ("all", (32, 8))):
+        q, k, v, do = flash_inputs(dev, g, torch.bfloat16, MESH_BATCH, MESH_SEQ, h, hkv, 128)
+        o, lse = flash_ops._launch(q, k, v, with_lse=True)
+        out[f"flash_{label}"] = dict(heads=[h, hkv], fwd_ms=time_ms(lambda: flash_ops._launch(q, k, v), reps=20),
+                                     bwd_ms=time_ms(lambda: flash_ops._launch_bwd(q, k, v, o, lse, do), reps=20))
+    for label, h in (("local", 20), ("all", 40)):
+        r, k, v, logw, u, do = scan_inputs(dev, g, torch.bfloat16, MESH_BATCH, MESH_SEQ, h, 64)
+        out[f"scan_{label}"] = dict(
+            heads=h, fwd_ms=time_ms(lambda: scan_ops._launch(r, k, v, logw, u, None, torch.float32), reps=20),
+            bwd_ms=time_ms(lambda: scan_ops._launch_bwd(r, k, v, logw, u, None, do), reps=20))
+    log("  one launch at local heads vs all heads (ms): " + json.dumps(out))
+    return out
+
+
+def torchrun(world: int, argv: list, out: Path, timeout: int = 600):
+    """``argv`` under torchrun with ``world`` ranks on this card, each rank's
+    JSON record from ``out``."""
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(world),
+                           *argv], cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"torchrun {' '.join(argv)} exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+    return [json.loads((out / f"{r}.json").read_text()) for r in range(world)], wall
+
+
+# kills the process in a gloo world on the H100 (torch 2.11;
+# scripts/gloo_cuda_probe.py without --skip): scripts/mesh_runs.py sends
+# these gathers through c10d's all_gather_into_tensor (gloo_gathers)
+GLOO_CRASH = "funcol.all_gather_into_tensor"
+
+
+def gloo_probe_start():
+    """Start the probe of every other collective of mesh training on CUDA
+    tensors in a gloo world of 2 (scripts/gloo_cuda_probe.py)."""
+    import shutil
+
+    out = ROOT / "chiprun_out" / "gloo_probe"
+    shutil.rmtree(out, ignore_errors=True)
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+                             str(ROOT / "scripts" / "gloo_cuda_probe.py"), "--skip", GLOO_CRASH, "--out", str(out)],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    return proc, out
+
+
+def gloo_probe_end(proc, out) -> dict:
+    """The probe's result: each collective ran and right, or the phase
+    fails; GLOO_CRASH named as routed through c10d."""
+    stdout, stderr = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        fail(f"the gloo probe exited {proc.returncode}: {stdout[-1500:]} {stderr[-3000:]}")
+    ranks = [json.loads((out / f"{r}.json").read_text()) for r in range(2)]
+    for r in ranks:
+        for name, res in r["ops"].items():
+            if not (res.get("ran") and res.get("right")):
+                fail(f"gloo {name} on CUDA tensors on rank {r['rank']}: {res}")
+    ops = dict(ranks[0]["ops"])
+    ops[GLOO_CRASH] = dict(ran=False, error="not run: it kills the process (SIGSEGV) on the H100 with torch 2.11; "
+                                            "scripts/mesh_runs.py routes it through c10d")
+    log(f"  gloo on CUDA tensors: " + json.dumps(ops))
+    return {"ops": ops}
+
+
+_ONE_DEVICE = {}
+
+
+def _one_device(argv: list, dev, n_micro: int = 1) -> dict:
+    """The train CLI in this process on one device: its per-step record
+    (once per argv); with ``n_micro`` its steps' gradients summed over that
+    many microbatches (the reduction order changed, nothing else)."""
+    from repro_torch.launch import specs
+    from repro_torch.launch import train as train_cli
+
+    key = (tuple(argv), n_micro)
+    if key in _ONE_DEVICE:
+        return _ONE_DEVICE[key]
+    make = specs.make_train_step
+    specs.make_train_step = lambda cfg, oc, **kw: make(cfg, oc, n_micro, **kw)
+    try:
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main(argv + ["--checkpoint-dir", f"{tmp}/ck", "--record", f"{tmp}/rec", "--log-every", "0"])
+            step_rec = json.loads(Path(f"{tmp}/rec/0.json").read_text())
+    finally:
+        specs.make_train_step = make
+    torch.cuda.empty_cache()
+    _ONE_DEVICE[key] = step_rec
+    return step_rec
+
+
+def _mesh_argv(arch, layers) -> list:
+    """The train CLI's arguments of one of MESH_RUNS (and of its one-device
+    reference)."""
+    return (["--arch", arch, "--global-batch", str(MESH_BATCH), "--seq-len", str(MESH_SEQ), "--steps",
+             str(MESH_STEPS), "--seed", "0"] + (["--layers", str(layers)] if layers else []))
+
+
+def _mesh_flags(mesh_model, out) -> list:
+    return ["--mesh-model", str(mesh_model), "--log-every", "0",
+            "--checkpoint-dir", tempfile.mkdtemp(prefix="mesh_ck_"), "--record", str(out)]
+
+
+def mesh_check(label, world, backend, mesh_model, arch, layers, ranks, ref, wall) -> dict:
+    """One of MESH_RUNS from each rank's record (steps' seconds, peak
+    memory, losses, launches by variant and the shapes each kernel took),
+    held to one device's losses, to the kernels' launch counts of phase 20
+    and to each rank's local heads."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    fwd, bwd = ("rwkv6_scan", "rwkv6_scan_bwd") if cfg.family == "ssm" else ("flash_attention", "flash_attention_bwd")
+    n = cfg.n_layers if cfg.family == "ssm" else cfg.layer_kinds().count("attn")
+    local = lambda h: h // mesh_model if h % mesh_model == 0 else h
+    row = dict(label=label, world=world, backend=backend, mesh=ranks[0]["mesh"], arch=arch, layers=cfg.n_layers,
+               wall_s=wall, losses=ranks[0]["losses"], one_device_losses=ref["losses"],
+               step_s=[[st["seconds"] for st in r["steps"]] for r in ranks],
+               one_device_step_s=[st["seconds"] for st in ref["steps"]],
+               peak_gib=[max(st["peak_gib"] for st in r["steps"]) for r in ranks],
+               launches=[r["steps"][-1]["launches"] for r in ranks], shapes=[r["steps"][-1]["shapes"] for r in ranks])
+    rels = [abs(a - b) / abs(b) for a, b in zip(row["losses"], ref["losses"])]
+    row["loss_rel"] = max(rels)
+    log(f"  {label}: step s per rank {[[round(x, 3) for x in t] for t in row['step_s']]} (one device "
+        f"{[round(x, 3) for x in row['one_device_step_s']]}), peak {[round(x, 2) for x in row['peak_gib']]} GiB, losses "
+        f"{[round(x, 4) for x in row['losses']]} vs one device {[round(x, 4) for x in ref['losses']]} (rel "
+        f"{row['loss_rel']:.2e}), launches per rank {row['launches']}, shapes {row['shapes']}")
+    for r in ranks:
+        if r["backend"] != backend:
+            fail(f"{label}: rank {r['rank']} trained on {r['backend']}, not {backend}")
+        if r["losses"] != ranks[0]["losses"]:
+            fail(f"{label}: rank {r['rank']} losses {r['losses']} differ from rank 0's {ranks[0]['losses']}")
+        for i, st in enumerate(r["steps"]):
+            counts = {k: sum(v.values()) for k, v in st["launches"].items()}
+            if counts.get(fwd) != 2 * n or counts.get(bwd) != n:
+                fail(f"{label} rank {r['rank']} step {i} launched {st['launches']}, not {fwd} {2 * n} and {bwd} {n}")
+        if cfg.family == "ssm":
+            want = {(MESH_BATCH, MESH_SEQ, local(cfg.n_heads), cfg.rwkv_head_dim)}
+        else:
+            want = {(MESH_BATCH, MESH_SEQ, local(cfg.n_heads), local(cfg.n_kv_heads), cfg.resolved_head_dim)}
+        for name in (fwd, bwd):
+            if {tuple(x) for x in r["steps"][-1]["shapes"][name]} != want:
+                fail(f"{label} rank {r['rank']}: {name} took shapes {r['steps'][-1]['shapes'][name]}, not {want}")
+    if not (len(rels) == MESH_STEPS and rels[0] <= MESH_LOSS_TOL[0] and max(rels) <= MESH_LOSS_TOL[1]):
+        fail(f"{label}: losses {row['losses']} vs one device {ref['losses']} (rel {rels})")
+    return row
+
+
+def mesh_grad_check(arch, ranks) -> dict:
+    """scripts/mesh_grads.py's readings of ``arch`` (the largest over ranks:
+    each rank wrote the same): on every mesh the sound reading at most
+    MESH_GRAD_TOL, and the bf16 control and every planted fault above it."""
+    rec = ranks[0]
+    for label, readings in rec["readings"].items():
+        log(f"  {arch} float32 gradients at {label}, {rec['layers']} layer: " + ", ".join(
+            f"{name} {err:.3e} ({key}, {sec:.1f} s)" for name, (err, key, sec) in readings.items()))
+        sound = readings["sound"][0]
+        others = {k: v[0] for k, v in readings.items() if k != "sound"}
+        if not sound <= MESH_GRAD_TOL or any(v <= MESH_GRAD_TOL for v in others.values()):
+            fail(f"{arch} mesh gradients at {label}: sound {sound:.3e}, control and faults {others}: the limit "
+                 f"{MESH_GRAD_TOL} does not tell them apart")
+    if not any(k.startswith("fault_") for r in rec["readings"].values() for k in r):
+        fail(f"{arch} mesh gradients: no planted fault was read")
+    bf = rec["bf16"]
+    log(f"  {arch} bf16's own scale: the mesh's bf16 gradients vs one device's {bf['mesh_vs_one_device'][0]:.3e} "
+        f"({bf['mesh_vs_one_device'][1]}); one device's bf16 vs float32 {bf['one_device_vs_float32'][0]:.3e} "
+        f"({bf['one_device_vs_float32'][1]})")
+    rec["peak_gib"] = [r.get("peak_gib") for r in ranks]
+    return rec
+
+
+def mesh_reorder(runs, reorder) -> dict:
+    """MESH_REORDER's one-device run with its gradient summed over two
+    microbatches against the same run over one, reported beside the mesh's
+    drift from one device."""
+    row = next(r for r in runs if r["arch"] == MESH_REORDER[0] and r["world"] > 1)
+    rels = [abs(a - b) / abs(b) for a, b in zip(reorder["losses"], row["one_device_losses"])]
+    rec = dict(arch=MESH_REORDER[0], layers=MESH_REORDER[1], losses=reorder["losses"], loss_rel=rels,
+               mesh_loss_rel=row["loss_rel"])
+    log(f"  {MESH_REORDER[0]} ({MESH_REORDER[1]} layers) on one device over two microbatches: losses rel "
+        f"{[f'{x:.2e}' for x in rels]} to one (the mesh's {row['loss_rel']:.2e})")
+    if len(rels) != MESH_STEPS or not all(np.isfinite(reorder["losses"])):
+        fail(f"the one-device run over two microbatches gave losses {reorder['losses']}")
+    return rec
+
+
+def mesh_resume_check(first, resumed, ref) -> dict:
+    """whisper_tiny saved at 1x2 after 2 steps and resumed at 2x1 (FSDP over
+    "data") for 2 more, against 4 uninterrupted steps on one device."""
+    rec = dict(first=first[0]["losses"], first_mesh=first[0]["mesh"], resumed=resumed[0]["losses"],
+               resumed_mesh=resumed[0]["mesh"], one_device=ref["losses"])
+    got = rec["first"] + rec["resumed"]
+    rels = [abs(a - b) / abs(b) for a, b in zip(got, ref["losses"])]
+    rec["loss_rel"] = max(rels) if rels else None
+    log(f"  resume: 1x2 {[round(x, 4) for x in rec['first']]} then 2x1 {[round(x, 4) for x in rec['resumed']]} vs one "
+        f"device {[round(x, 4) for x in rec['one_device']]} (rel {rec['loss_rel']})")
+    if len(got) != 4 or not (rels[0] <= MESH_LOSS_TOL[0] and max(rels) <= MESH_LOSS_TOL[1]):
+        fail(f"the run resumed on another mesh gave {got}, against one device's {ref['losses']}")
+    return rec
+
+
+def dmrg_cell_on_card(dev) -> dict:
+    """The dry run's dense Davidson step (launch/specs.dmrg_davidson_fn) on a
+    1x1 mesh at MESH_DMRG, f32 and bf16 storage: its time beside the
+    per-rank flops launch/costs.py counts while it runs, and its lam and
+    residual norm against the same step on plain tensors."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch import mesh as mesh_mod, specs
+    from repro_torch.launch.costs import counting
+    from repro_torch.launch.sharding import placements_for
+
+    p = MESH_DMRG
+    m, d, k = p["m"], p["d"], p["k"]
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), "cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        A = (torch.randn(m, k, m, generator=g, device=dev) / m).to(dt)
+        W = (torch.randn(k, d, d, k, generator=g, device=dev) / k).to(dt)
+        x = torch.randn(m, d, d, m, generator=g, device=dev)
+        x = (x / x.norm()).to(dt)
+        env = placements_for(("data", None, "model"), mesh)
+        xs = placements_for(("data", None, None, "model"), mesh)
+        rep = placements_for((), mesh)
+        args = [distribute_tensor(t, mesh, pl) for t, pl in ((A, env), (W, rep), (W, rep), (A, env), (x, xs))]
+        step = specs.dmrg_davidson_fn(m, d, k, store_dtype=dt)
+        with counting(mesh_mod.HW) as c:
+            lam, rn, _ = step(*args)
+        plain_lam, plain_rn, _ = step(A, W, W, A, x)
+        ms = time_ms(lambda: step(*args), reps=3)
+        plain_ms = time_ms(lambda: step(A, W, W, A, x), reps=3)
+        peak_ops = PEAK_FLOPS[dt]
+        out[name] = dict(m=m, d=d, k=k, ms=ms, plain_ms=plain_ms, flops=c.flops, bytes=c.bytes,
+                         achieved_tflops=c.flops / (ms * 1e-3) / 1e12, bound_ms=c.flops / peak_ops * 1e3,
+                         lam=float(lam.full_tensor()), lam_plain=float(plain_lam),
+                         rnorm=float(rn.full_tensor()), rnorm_plain=float(plain_rn))
+        log(f"  DMRG step m={m} {name}: {ms:.2f} ms on the mesh ({plain_ms:.2f} plain), {c.flops:.3e} flops counted "
+            f"({out[name]['achieved_tflops']:.1f} TFLOP/s), lam {out[name]['lam']:.6e} (plain {out[name]['lam_plain']:.6e})")
+        del args, A, W, x
+        torch.cuda.empty_cache()
+        lim = 1e-4 if dt == torch.float32 else 5e-2
+        if not abs(out[name]["lam"] - out[name]["lam_plain"]) <= lim * max(1.0, abs(out[name]["lam_plain"])):
+            fail(f"DMRG step on the mesh: lam {out[name]['lam']} vs plain {out[name]['lam_plain']}")
+    return out
+
+
+def mesh_paths(entry: dict, name: str, meshed: dict) -> None:
+    """Each rank's launches of ``name`` under phase 21's meshes, added to
+    its kernels-line entry."""
+    for r in meshed["runs"]:
+        per_rank = [lc.get(name) for lc in r["launches"]]
+        if any(per_rank):
+            entry["launches"] += sum(sum(v.values()) for v in per_rank if v) * MESH_STEPS
+            entry.setdefault("paths", {})[f"{r['label']} training, a step per rank (phase 21)"] = dict(
+                launches=per_rank, shapes=[s.get(name) for s in r["shapes"]])
 
 
 def backward_timings(dev) -> dict:
@@ -2227,7 +2616,14 @@ def main():
     record["train"] = trained = train_path(dev)
     trained["wall_s"] = time.perf_counter() - t0
 
-    # ---- phase 21: summary
+    # ---- phase 21: training under a mesh
+    log(f"phase 21: training under a mesh: {', '.join(r[0] for r in MESH_RUNS)}, B={MESH_BATCH} x S={MESH_SEQ}, "
+        f"{MESH_STEPS} steps each against one device; restore onto another mesh; the DMRG cell at m={MESH_DMRG['m']}")
+    t0 = time.perf_counter()
+    record["mesh"] = meshed = mesh_path(dev)
+    meshed["wall_s"] = time.perf_counter() - t0
+
+    # ---- phase 22: summary
     total = lambda k: sum(r[k] for r in mid)
     bound_ops = sum(r["bound_ms"] for r in mid if r["bound_by"] == "operations")
     bucket = planned["largest_bucket"]
@@ -2287,6 +2683,7 @@ def main():
         entry["launches"] += sum(r["launches"][name] for r in train_run_rec["steps"])
         entry.setdefault("paths", {})[f"{arch} training, {len(train_run_rec['steps'])} timed steps (phase 20)"] = dict(
             launches=[r["variants"][name] for r in train_run_rec["steps"]])
+        mesh_paths(entry, name, meshed)
         entries.append(entry)
     for name, arch, src, replaces in (
         ("flash_attention_bwd", "llama3_8b", "flash_attention/flash_attention_bwd.cu",
@@ -2300,6 +2697,7 @@ def main():
             launches=sum(r["launches"][name] for r in run["steps"]), max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             variants=[r["variants"][name] for r in run["steps"]], rel_l2=row["rel_l2"], shape=row["shape"]))
+        mesh_paths(entries[-1], name, meshed)
     record["kernels"] = entries
     record["total_s"] = time.perf_counter() - t_start
     out = Path(args.out)
@@ -2343,6 +2741,29 @@ def main():
         log(f"{name} at {row['shape']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.3f}{lib}, bound {row['bound_ms']:.4f} "
             f"by {row['bound_by']}), rel L2 {row['rel_l2']:.2e}")
     log(f"phase 20: {trained['wall_s']:.1f} s")
+    for r in meshed["runs"]:
+        log(f"mesh {r['label']}: step s per rank {[[round(x, 3) for x in t] for t in r['step_s']]} (one device "
+            f"{[round(x, 3) for x in r['one_device_step_s']]}), peak {[round(x, 2) for x in r['peak_gib']]} GiB, losses "
+            f"rel {r['loss_rel']:.2e}, launches per rank {r['launches']}")
+    for arch, g in meshed["grads"].items():
+        log(f"mesh float32 gradients {arch}: " + "; ".join(
+            f"{label} " + ", ".join(f"{n} {v[0]:.2e}" for n, v in r.items()) for label, r in g["readings"].items())
+            + f" (limit {MESH_GRAD_TOL}); bf16 mesh vs one device {g['bf16']['mesh_vs_one_device'][0]:.2e}, one "
+            f"device bf16 vs float32 {g['bf16']['one_device_vs_float32'][0]:.2e}")
+    ro = meshed["reorder"]
+    log(f"{ro['arch']} one device over two microbatches: losses rel {[f'{x:.2e}' for x in ro['loss_rel']]} (mesh "
+        f"{ro['mesh_loss_rel']:.2e}, limit {MESH_LOSS_TOL})")
+    res, dm = meshed["resume"], meshed["dmrg"]
+    log(f"mesh resume 1x2 -> 2x1: losses rel {res['loss_rel']:.2e}; gloo on CUDA: "
+        + ", ".join(f"{k} {'ok' if v.get('right') else 'refused'}" for k, v in meshed["gloo_probe"]["ops"].items()))
+    for name, r in dm.items():
+        log(f"DMRG step m={r['m']} {name}: {r['ms']:.2f} ms ({r['plain_ms']:.2f} plain), {r['flops']:.3e} flops counted, "
+            f"{r['achieved_tflops']:.1f} TFLOP/s")
+    lh = meshed["local_heads"]
+    log("launches at a 1x2 rank's heads vs all heads, ms: " + ", ".join(
+        f"{k.split('_')[0]} fwd {lh[k.split('_')[0] + '_local']['fwd_ms']:.4f} / {lh[k]['fwd_ms']:.4f}, bwd "
+        f"{lh[k.split('_')[0] + '_local']['bwd_ms']:.4f} / {lh[k]['bwd_ms']:.4f}" for k in ("flash_all", "scan_all")))
+    log(f"phase 21: {meshed['wall_s']:.1f} s")
     for arch in ("pixtral_12b", "recurrentgemma_2b"):
         r, w = timing[f"flash_mma_{arch}"], timing[f"flash_{arch}"]
         log(f"flash_mma forced at {arch}'s attention: {r['ms']:.4f} ms against {w['variant']}'s {w['ms']:.4f} "

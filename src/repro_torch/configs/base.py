@@ -105,6 +105,15 @@ class ArchConfig:
             total += self.n_enc_layers * per_layer + L * (attn + d * d)  # cross-attn
         return total
 
+    def active_param_count(self) -> int:
+        if not self.n_experts:
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        hd = self.resolved_head_dim
+        attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
+        ffn = (self.top_k + self.n_shared_experts) * 3 * d * self.moe_d_ff + d * self.n_experts
+        return L * (attn + ffn) + self.vocab_size * d * 2
+
     def _layer_kind(self, i: int) -> str:
         if not self.block_pattern:
             return "attn"
@@ -112,6 +121,14 @@ class ArchConfig:
 
     def layer_kinds(self) -> Tuple[str, ...]:
         return tuple(self._layer_kind(i) for i in range(self.n_layers))
+
+    def shape_supported(self, shape_name: str) -> Tuple[bool, str]:
+        kind = SHAPES[shape_name]["kind"]
+        if kind == "decode" and not self.has_decoder:
+            return False, "encoder-only arch has no decode step"
+        if shape_name == "long_500k" and not self.sub_quadratic:
+            return False, "pure full-attention arch; 500k decode needs sub-quadratic attention"
+        return True, ""
 
     def smoke(self) -> "ArchConfig":
         """Reduced same-family config for CPU smoke tests."""

@@ -27,12 +27,17 @@ VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     "rwkv6_scan_bwd": {"chunk16": 0, "chunk32": 0, "chunk64": 0},
 }
 LAUNCHES: Dict[str, int] = {name: 0 for name in VARIANT_LAUNCHES}
+# per kernel, the shapes its launches took (flash: B, S, H, Hkv, D; the
+# scan: B, T, H, N), so a run under a mesh shows each rank's local heads
+LAUNCH_SHAPES: Dict[str, set] = {name: set() for name in VARIANT_LAUNCHES}
 _RECORDING: Optional[Dict[Tuple[str, str], int]] = None
 
 
-def count_launch(kernel: str, variant: str) -> None:
-    """One launch of ``kernel`` by its ``variant``: called by the wrappers
-    where they launch, and nowhere else."""
+def count_launch(kernel: str, variant: str, shape: Optional[Tuple[int, ...]] = None) -> None:
+    """One launch of ``kernel`` by its ``variant`` (of ``shape``): called by
+    the wrappers where they launch, and nowhere else."""
+    if shape is not None:
+        LAUNCH_SHAPES[kernel].add(tuple(shape))
     if _RECORDING is not None:
         _RECORDING[(kernel, variant)] = _RECORDING.get((kernel, variant), 0) + 1
         return
@@ -65,5 +70,6 @@ def count_replay(tally: Dict[Tuple[str, str], int]) -> None:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        LAUNCH_SHAPES[name].clear()
         for variant in VARIANT_LAUNCHES[name]:
             VARIANT_LAUNCHES[name][variant] = 0

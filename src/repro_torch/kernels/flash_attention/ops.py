@@ -4,13 +4,29 @@ models' [B, S, H, D] layout with grouped KV heads, and of its backward
 
 On a CUDA tensor it launches the hand-written kernel, or raises: it never
 falls back to the plain version.  The plain version (``ref.py``) runs only
-for tensors that lie on the CPU, or when the caller asks for it with
+for real tensors that lie on the CPU (a fake one takes the kernel path,
+below), or when the caller asks for it with
 ``use_kernel=False``; autograd through it is the plain version of the
 backward.  When a gradient is needed (grad mode on and q, k or v requiring
 one), the kernel runs inside ``FlashAttention``, an autograd Function whose
 forward also writes the row log-sum-exp and whose backward launches the
 backward kernel (counted as ``flash_attention_bwd``); without one, the
 forward writes the output alone.
+
+Each launch is a ``torch.library`` custom op (``repro_torch::flash_attention_fwd``
+and ``..._bwd``): its real implementation launches the kernel; its fake
+one gives shapes and dtypes only, so that a step on fake tensors (the dry
+run, ``launch/costs.py``) goes through the kernel path without launching
+anything, and a flop formula counts it there (causal: 2 B H S^2 D forward,
+2.5 times that backward).
+
+Under a mesh (q, k, v DTensors) the wrapper runs the kernel on each rank's
+local shard: the batch (dim 0) may be sharded on any mesh dims, the heads
+(dim 2) on one, and every other mesh dim replicates.  k and v follow q, or
+replicate their heads where q shards them (GQA with ``Hkv`` not divisible
+by the mesh dim), and then each rank takes the KV heads that its query
+heads read (``local_kv_heads``).  Any other placement raises: nothing
+gathers a sharded input to run the kernel on the whole.
 """
 from __future__ import annotations
 
@@ -19,9 +35,11 @@ import functools
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import count_launch
 from ..build import load_library
+from ..sharded import heads_local, is_dtensor, is_fake
 from .ref import flash_attention_ref
 
 SOURCE = Path(__file__).with_name("flash_attention.cu")
@@ -92,7 +110,9 @@ def flash_attention_bshd(q, k, v, *, use_kernel: bool = True, kind: str | None =
         raise ValueError(f"k, v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if kind is not None and kind not in VARIANTS:
         raise ValueError(f"kind must be one of {VARIANTS}, got {kind!r}")
-    if not use_kernel or q.device.type == "cpu":
+    if any(is_dtensor(a) for a in (q, k, v)):
+        return _sharded(q, k, v, use_kernel, kind)
+    if not use_kernel or (q.device.type == "cpu" and not is_fake(q)):
         return _plain(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, kind)
@@ -117,6 +137,13 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _sharded(q, k, v, use_kernel, kind):
+    """The wrapper on each rank's shard of DTensors q, k, v (see the module
+    docstring); the output is a DTensor laid out as q."""
+    return heads_local("flash attention", functools.partial(flash_attention_bshd, use_kernel=use_kernel, kind=kind),
+                       q, k, v)
+
+
 def _plain(q, k, v):
     b, s, h, d = q.shape
     rep = h // k.shape[2]
@@ -129,7 +156,7 @@ def _plain(q, k, v):
 
 def _check(q, k, v):
     dev = q.device
-    if dev.type != "cuda" or k.device != dev or v.device != dev:
+    if (dev.type != "cuda" and not is_fake(q)) or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device, got {dev}, {k.device}, {v.device}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -143,25 +170,36 @@ def _launch(q, k, v, kind=None, with_lse: bool = False):
     """The forward kernel: (output, row log-sum-exp float32 [B, H, S] when
     ``with_lse``, else None)."""
     _check(q, k, v)
+    out, lse = torch.ops.repro_torch.flash_attention_fwd(q, k, v, kind or variant(q.dtype, q.shape[3]), with_lse)
+    return out, lse if with_lse else None
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str, with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
     dev = q.device
     b, s, h, d = q.shape
-    kind = kind or variant(q.dtype, d)
     if kind == "flash_wgmma" and any(a.data_ptr() % 16 for a in (q, k, v)):
         raise ValueError("flash_wgmma reads q, k, v through TMA and needs them 16-byte aligned")
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) if with_lse else None
+    lse = torch.empty((b, h, s) if with_lse else (0,), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, lse
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().flash_attention_launch(
         _DTYPE_CODE[q.dtype], VARIANTS.index(kind), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, s, h, k.shape[2], d, 1.0 / d**0.5, stream,
+        lse.data_ptr() if with_lse else None, b, s, h, k.shape[2], d, 1.0 / d**0.5, stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel {kind} launch failed: cudaError {err} "
                            f"(B={b}, S={s}, H={h}, Hkv={k.shape[2]}, D={d})")
-    count_launch("flash_attention", kind)
+    count_launch("flash_attention", kind, (b, s, h, k.shape[2], d))
     return out, lse
+
+
+@_fwd_op.register_fake
+def _(q, k, v, kind, with_lse):
+    b, s, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s) if with_lse else (0,), dtype=torch.float32)
 
 
 def _launch_bwd(q, k, v, out, lse, dout, kind=None):
@@ -181,12 +219,18 @@ def _launch_bwd(q, k, v, out, lse, dout, kind=None):
         raise ValueError("flash_attention backward needs contiguous out, dout and lse")
     if any(a.device != q.device for a in (out, lse, dout)):
         raise ValueError("flash_attention backward needs every operand on q's device")
+    if kind is not None and kind not in BWD_VARIANTS:
+        raise ValueError(f"kind must be one of {BWD_VARIANTS}, got {kind!r}")
+    return torch.ops.repro_torch.flash_attention_bwd(q, k, v, out, lse, dout, kind or bwd_variant(q.dtype, d))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+            dout: torch.Tensor, kind: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, s, h, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
-    if kind is not None and kind not in BWD_VARIANTS:
-        raise ValueError(f"kind must be one of {BWD_VARIANTS}, got {kind!r}")
-    kind = kind or bwd_variant(q.dtype, d)
     if kind != "bwd_simple" and any(a.data_ptr() % 16 for a in (q, k, v, out, dout, dq, dk, dv)):
         raise ValueError(f"flash_attention backward {kind} moves q, k, v, out, dout (through TMA in bwd_wgmma) and "
                          "dq, dk, dv in 16-byte pieces and needs them 16-byte aligned")
@@ -200,5 +244,27 @@ def _launch_bwd(q, k, v, out, lse, dout, kind=None):
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel {kind} launch failed: cudaError {err} "
                            f"(B={b}, S={s}, H={h}, Hkv={k.shape[2]}, D={d})")
-    count_launch("flash_attention_bwd", kind)
+    count_launch("flash_attention_bwd", kind, (b, s, h, k.shape[2], d))
     return dq, dk, dv
+
+
+@_bwd_op.register_fake
+def _(q, k, v, out, lse, dout, kind):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def fwd_flops(b: int, s: int, h: int, d: int) -> float:
+    """Causal attention's products over the causal half: 2 * 2 B H S^2 D / 2."""
+    return 2.0 * b * h * s * s * d
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _(q_shape, k_shape, v_shape, *args, **kwargs) -> float:
+    b, s, h, d = q_shape
+    return fwd_flops(b, s, h, d)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q_shape, *args, **kwargs) -> float:
+    b, s, h, d = q_shape
+    return 2.5 * fwd_flops(b, s, h, d)

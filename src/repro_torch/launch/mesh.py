@@ -17,6 +17,24 @@ ranks' grid.  Two helpers:
   world; the groups it creates along each mesh dimension take the same
   finite timeout.
 
+``make_production_mesh`` gives the reference's production meshes, (16, 16)
+over ("data", "model") or (2, 16, 16) over ("pod", "data", "model"), for
+the dry run (``launch/dryrun.py``): one process stands for every rank, in
+a fake process group (``fake_world``) whose collectives move nothing.
+``HW`` holds the roofline constants of the NVIDIA H100 SXM5 80GB.
+
+Ranks that share one card cannot take NCCL, which refuses two ranks on
+one card: ``backend_for`` gives them gloo, which carries CUDA tensors
+through the host.  Mesh training's collectives there are DTensor's
+functional all_gather_into_tensor, reduce_scatter_tensor, all_reduce and
+all_to_all_single on CUDA tensors.  On the H100 with torch 2.11
+(``scripts/gloo_cuda_probe.py``): all of them, and c10d's calls of the same
+names, run right in a gloo world of 2, except the functional
+all_gather_into_tensor, which kills the process (SIGSEGV) while c10d's
+``all_gather_into_tensor`` of the same tensors runs right.  The runner of
+such worlds (``scripts/mesh_runs.py``) routes those gathers through c10d
+while its runs last; this package leaves torch's collectives as they are.
+
 ``mesh_context`` is the reference's entry point for a mesh scope.  A
 DeviceMesh is not entered: its collectives name their groups explicitly,
 so the context does nothing and exists so that callers read alike.
@@ -28,6 +46,7 @@ import datetime
 import os
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -36,8 +55,12 @@ DIST_TIMEOUT = 120.0
 
 
 def backend_for(device_type: str) -> str:
-    """The default backend of a device type: NCCL on the card, gloo on the CPU."""
-    return "nccl" if device_type == "cuda" else "gloo"
+    """The default backend of a device type: gloo on the CPU; on the card
+    NCCL, or gloo where this host's ranks (torchrun's ``LOCAL_WORLD_SIZE``)
+    outnumber its cards and so share one."""
+    if device_type != "cuda":
+        return "gloo"
+    return "nccl" if int(os.environ.get("LOCAL_WORLD_SIZE", "1")) <= torch.cuda.device_count() else "gloo"
 
 
 def init_world(
@@ -51,9 +74,9 @@ def init_world(
 ) -> None:
     """Initialize the default process group unless one exists.
 
-    ``backend`` defaults to ``backend_for(device_type)``; a caller that
-    wants gloo on the card passes it.  Without a ``store`` and without the
-    ``torchrun`` environment the world is this process alone.
+    ``backend`` defaults to ``backend_for(device_type)``.  Without a
+    ``store`` and without the ``torchrun`` environment the world is this
+    process alone.
     """
     if dist.is_initialized():
         return
@@ -113,3 +136,44 @@ def mesh_context(mesh):
     """The reference's mesh scope; a DeviceMesh needs none (see the module
     docstring)."""
     return contextlib.nullcontext(mesh)
+
+
+def fake_world(world_size: int) -> None:
+    """Make this process rank 0 of a fake process group of ``world_size``
+    ranks (``torch.testing``'s fake backend: every collective returns at
+    once and moves nothing), unless a process group exists."""
+    if dist.is_initialized():
+        if dist.get_world_size() != world_size:
+            raise RuntimeError(f"a process group of {dist.get_world_size()} ranks exists; the mesh needs {world_size}")
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+
+
+def fake_mesh(shape: Sequence[int], axes: Sequence[str], device_type: str = "cpu"):
+    """A DeviceMesh of ``shape`` over a fake world of its size (see
+    ``fake_world``); the dry run's meshes are CPU meshes of fake tensors."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    fake_world(int(np.prod(shape)))
+    return init_device_mesh(device_type, tuple(int(s) for s in shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return fake_mesh(shape, axes)
+
+
+# NVIDIA H100 SXM5 80GB at 700 W, per GPU: spec-sheet figures, not
+# measurements, for the dry run's roofline
+HW = dict(
+    peak_flops_bf16=989.4e12,  # FLOP/s, dense bf16 on the tensor cores (spec sheet)
+    hbm_bw=3.35e12,            # B/s, HBM3 (spec sheet)
+    hbm_bytes=80e9,            # bytes of HBM3 (spec sheet)
+    nvlink_bw=450e9,           # B/s per direction, NVLink 4, inside a node (spec sheet)
+    node_gpus=8,               # GPUs a node holds, all to all over NVLink
+    internode_bw=50e9,         # B/s per GPU between nodes: one 400 Gb/s link (spec sheet)
+)
+

@@ -13,6 +13,11 @@ is causal only).  Cross attention and Whisper's non-causal encoder
 self-attention are plain for the same reason.  Decode keeps the cache at
 ``n_kv_heads`` and uses the grouped form (the logits are tiny at one
 query), in plain PyTorch.
+
+Under a mesh (DTensor activations) the reference's hints place the head
+axis over "model": q always, k and v at their ``n_kv_heads`` when that
+divides the "model" axis and replicated otherwise, where the flash
+wrapper hands each rank the KV heads its query heads read.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import numpy as np
 import torch
 
 from ..kernels.flash_attention.ops import flash_attention_bshd
+from ..kernels.sharded import heads_local
+from .common import batch_axes, is_dtensor, shard_hint
 
 NEG_INF = -2.0**30
 
@@ -27,7 +34,13 @@ NEG_INF = -2.0**30
 def _expand_kv(k, n_heads: int):
     """[B,S,Hkv,D] -> [B,S,H,D]: query head h reads KV head h // (H / Hkv)."""
     hkv = k.shape[2]
-    return k if hkv == n_heads else k.repeat_interleave(n_heads // hkv, dim=2)
+    k = k if hkv == n_heads else k.repeat_interleave(n_heads // hkv, dim=2)
+    return shard_hint(k, batch_axes(), None, "model", None)
+
+
+def _heads_hint(t):
+    """[B,S,H,D] with the batch over (pod, data) and the heads over "model"."""
+    return shard_hint(t, batch_axes(), None, "model", None)
 
 
 def causal_attention(q, k, v, *, local_window: int = 0, use_kernel: bool = True):
@@ -38,7 +51,7 @@ def causal_attention(q, k, v, *, local_window: int = 0, use_kernel: bool = True)
         return _windowed_attention(q, k, v, local_window)
     if local_window and s > local_window:
         return _banded_attention(q, k, v, local_window)
-    return flash_attention_bshd(q, k, v, use_kernel=use_kernel)
+    return flash_attention_bshd(_heads_hint(q), _heads_hint(k), _heads_hint(v), use_kernel=use_kernel)
 
 
 def _banded_attention(q, k, v, window: int):
@@ -46,7 +59,8 @@ def _banded_attention(q, k, v, window: int):
     over the whole key axis (the reference's path for W < S <= 2W)."""
     b, s, h, d = q.shape
     k, v = _expand_kv(k, h), _expand_kv(v, h)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / np.sqrt(d))
+    logits = torch.einsum("bqhd,bkhd->bhqk", _heads_hint(q), k).float() * (1.0 / np.sqrt(d))
+    logits = shard_hint(logits, batch_axes(), "model", "model", None)
     qpos = torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(s, device=q.device)[None, :]
     mask = (kpos <= qpos) & (kpos > qpos - window)
@@ -62,6 +76,7 @@ def _windowed_attention(q, k, v, window: int):
     nb = (s + w - 1) // w
     pad = nb * w - s
     k, v = _expand_kv(k, h), _expand_kv(v, h)
+    q = _heads_hint(q)
     if pad:
         padding = (0, 0, 0, 0, 0, pad)
         q, k, v = (torch.nn.functional.pad(a, padding) for a in (q, k, v))
@@ -71,6 +86,7 @@ def _windowed_attention(q, k, v, window: int):
     k2 = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1), kb], dim=2)  # [B,nb,2w,h,d]
     v2 = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1), vb], dim=2)
     logits = torch.einsum("bnqhd,bnkhd->bnhqk", qb, k2).float() * (1.0 / np.sqrt(d))
+    logits = shard_hint(logits, batch_axes(), None, "model", "model", None)
     qpos = torch.arange(w, device=q.device)[:, None] + w  # position on the 2w key axis
     kpos = torch.arange(2 * w, device=q.device)[None, :]
     mask = (kpos <= qpos) & (kpos > qpos - w)
@@ -83,7 +99,11 @@ def _windowed_attention(q, k, v, window: int):
 
 
 def cross_attention(q, k, v):
-    """q: [B,Sq,H,D]; k,v: [B,Sk,Hkv,D]; full (non-causal) attention."""
+    """q: [B,Sq,H,D]; k,v: [B,Sk,Hkv,D]; full (non-causal) attention.  Under a
+    mesh it is computed head-locally, on each rank's heads, by the rule of
+    the flash wrapper (``kernels/sharded.py``)."""
+    if is_dtensor(q):
+        return heads_local("cross attention", cross_attention, _heads_hint(q), _heads_hint(k), _heads_hint(v))
     h, d = q.shape[2], q.shape[3]
     k, v = _expand_kv(k, h), _expand_kv(v, h)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / np.sqrt(d)

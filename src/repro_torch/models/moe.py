@@ -19,6 +19,13 @@ as the reference leaves them to XLA outside any kernel.
 
 ``routing_tape`` pins the router across two runs of one model, so that two
 paths whose router logits differ by rounding can be held to rounding.
+
+Dispatch is local to the batch dim, so under a mesh (DTensor activations)
+the routing, the sort and the packing run on each rank's batch shard
+(the batch over "data", replicated over "model"), and only the packed
+[B, E, C, D] buffer meets the expert weights as a DTensor: EP over "model"
+when the expert count divides it (the reference's ``_buf_hint`` and
+``_h_hint``), else the expert-ff width.
 """
 from __future__ import annotations
 
@@ -27,6 +34,16 @@ import contextlib
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .common import batch_axes, like, local_part, shard_hint
+
+
+def _buf_hint(x):
+    return shard_hint(x, batch_axes(), "model", None, None)
+
+
+def _h_hint(x):
+    return shard_hint(x, batch_axes(), "model", None, "model")
 
 
 def select_top_k(probs, k: int):
@@ -73,7 +90,13 @@ def moe_ffn(x, w_router, w_gate, w_up, w_down, *, top_k: int, capacity_factor: f
     """x: [B,S,D]; w_router: [D,E]; w_gate/up: [E,D,F]; w_down: [E,F,D]."""
     b, s, d = x.shape
     e = w_router.shape[1]
+    if dispatch == "sorted":  # per-sequence dispatch: the batch shard stays whole on each rank
+        x = shard_hint(x, batch_axes(), None, None)
     probs = torch.softmax((x @ w_router).float(), dim=-1)
+    if dispatch == "sorted":
+        x_all, x = x, local_part(x)
+        probs = local_part(shard_hint(probs, batch_axes(), None, None))
+        b = x.shape[0]
     gate_w, gate_i = _route(probs, top_k)  # [B,S,k]
     gate_w = (gate_w / gate_w.sum(-1, keepdim=True)).to(x.dtype)
 
@@ -105,10 +128,11 @@ def moe_ffn(x, w_router, w_gate, w_up, w_down, *, top_k: int, capacity_factor: f
     xs = x[rows, st]  # [B, n_slots, D]
     buf = torch.zeros(b, e * cap + 1, d, dtype=x.dtype, device=dev)
     buf[rows, dest] = xs * keep[..., None].to(x.dtype)
-    buf = buf[:, :-1].reshape(b, e, cap, d)
-    h = F.silu(torch.einsum("becd,edf->becf", buf, w_gate)) * torch.einsum("becd,edf->becf", buf, w_up)
-    y = torch.einsum("becf,efd->becd", h, w_down).reshape(b, e * cap, d)
+    buf = _buf_hint(like(buf[:, :-1].reshape(b, e, cap, d), x_all, (x_all.shape[0], e, cap, d)))
+    h = F.silu(_h_hint(torch.einsum("becd,edf->becf", buf, w_gate))) * torch.einsum("becd,edf->becf", buf, w_up)
+    y = _buf_hint(torch.einsum("becf,efd->becd", h, w_down))
+    y = local_part(shard_hint(y, batch_axes(), None, None, None)).reshape(b, e * cap, d)
     yg = y[rows, torch.clamp(dest, max=e * cap - 1)] * (keep[..., None] * sw[..., None]).to(x.dtype)
     out = torch.zeros(b, s, d, dtype=x.dtype, device=dev)
-    return out.index_put_((rows.expand(b, n_slots), st), yg, accumulate=True)
+    return like(out.index_put_((rows.expand(b, n_slots), st), yg, accumulate=True), x_all, x_all.shape)
 

@@ -24,16 +24,16 @@ RG_C = 8.0
 
 def rglru_params(reg, prefix, d, d_rnn, conv_width=4, dtype=torch.float32):
     p = prefix
-    reg.add(f"{p}/w_x", (d, d_rnn), dtype=dtype)
-    reg.add(f"{p}/w_gate", (d, d_rnn), dtype=dtype)
-    reg.add(f"{p}/w_out", (d_rnn, d), dtype=dtype)
-    reg.add(f"{p}/conv_w", (conv_width, d_rnn), dtype=dtype, scale=0.5)
-    reg.add(f"{p}/conv_b", (d_rnn,), zeros=True, dtype=dtype)
-    reg.add(f"{p}/w_a", (d_rnn, d_rnn), dtype=dtype, scale=1e-2)
-    reg.add(f"{p}/b_a", (d_rnn,), zeros=True, dtype=dtype)
-    reg.add(f"{p}/w_i", (d_rnn, d_rnn), dtype=dtype, scale=1e-2)
-    reg.add(f"{p}/b_i", (d_rnn,), zeros=True, dtype=dtype)
-    reg.add(f"{p}/lam", (d_rnn,), zeros=True, dtype=dtype)
+    reg.add(f"{p}/w_x", (d, d_rnn), ("embed", "rnn"), dtype=dtype)
+    reg.add(f"{p}/w_gate", (d, d_rnn), ("embed", "rnn"), dtype=dtype)
+    reg.add(f"{p}/w_out", (d_rnn, d), ("rnn", "embed"), dtype=dtype)
+    reg.add(f"{p}/conv_w", (conv_width, d_rnn), ("conv", "rnn"), dtype=dtype, scale=0.5)
+    reg.add(f"{p}/conv_b", (d_rnn,), ("rnn",), zeros=True, dtype=dtype)
+    reg.add(f"{p}/w_a", (d_rnn, d_rnn), ("rnn", "rnn2"), dtype=dtype, scale=1e-2)
+    reg.add(f"{p}/b_a", (d_rnn,), ("rnn",), zeros=True, dtype=dtype)
+    reg.add(f"{p}/w_i", (d_rnn, d_rnn), ("rnn", "rnn2"), dtype=dtype, scale=1e-2)
+    reg.add(f"{p}/b_i", (d_rnn,), ("rnn",), zeros=True, dtype=dtype)
+    reg.add(f"{p}/lam", (d_rnn,), ("rnn",), zeros=True, dtype=dtype)
 
 
 def _conv1d_causal(x, w, b, state=None):

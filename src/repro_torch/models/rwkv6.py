@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rwkv6_scan.ops import rwkv6_wkv
+from .common import batch_axes, shard_hint, split_heads
 
 
 def _lerp(x, xprev, mu):
@@ -29,24 +30,24 @@ def _token_shift(x, x_last=None):
 def time_mix_params(reg, prefix, d, n_heads, head_dim, lora=64, dtype=torch.float32):
     p = prefix
     for mu in ("mu_x", "mu_w", "mu_k", "mu_v", "mu_r", "mu_g"):
-        reg.add(f"{p}/{mu}", (d,), zeros=True, dtype=dtype)
+        reg.add(f"{p}/{mu}", (d,), ("embed",), zeros=True, dtype=dtype)
     for w in ("w_r", "w_k", "w_v", "w_g", "w_o"):
-        reg.add(f"{p}/{w}", (d, d), dtype=dtype)
-    reg.add(f"{p}/w0", (d,), zeros=True, dtype=dtype)
-    reg.add(f"{p}/w_lora_a", (d, lora), dtype=dtype)
-    reg.add(f"{p}/w_lora_b", (lora, d), dtype=dtype, scale=1e-2)
-    reg.add(f"{p}/u", (n_heads, head_dim), zeros=True, dtype=dtype)
-    reg.add(f"{p}/gn_g", (d,), zeros=True, dtype=dtype)
-    reg.add(f"{p}/gn_b", (d,), zeros=True, dtype=dtype)
+        reg.add(f"{p}/{w}", (d, d), ("embed", "heads"), dtype=dtype)
+    reg.add(f"{p}/w0", (d,), ("heads",), zeros=True, dtype=dtype)
+    reg.add(f"{p}/w_lora_a", (d, lora), ("embed", "lora"), dtype=dtype)
+    reg.add(f"{p}/w_lora_b", (lora, d), ("lora", "heads"), dtype=dtype, scale=1e-2)
+    reg.add(f"{p}/u", (n_heads, head_dim), ("heads", "head_dim"), zeros=True, dtype=dtype)
+    reg.add(f"{p}/gn_g", (d,), ("heads",), zeros=True, dtype=dtype)
+    reg.add(f"{p}/gn_b", (d,), ("heads",), zeros=True, dtype=dtype)
 
 
 def channel_mix_params(reg, prefix, d, d_ff, dtype=torch.float32):
     p = prefix
-    reg.add(f"{p}/mu_k", (d,), zeros=True, dtype=dtype)
-    reg.add(f"{p}/mu_r", (d,), zeros=True, dtype=dtype)
-    reg.add(f"{p}/w_k", (d, d_ff), dtype=dtype)
-    reg.add(f"{p}/w_v", (d_ff, d), dtype=dtype)
-    reg.add(f"{p}/w_r", (d, d), dtype=dtype)
+    reg.add(f"{p}/mu_k", (d,), ("embed",), zeros=True, dtype=dtype)
+    reg.add(f"{p}/mu_r", (d,), ("embed",), zeros=True, dtype=dtype)
+    reg.add(f"{p}/w_k", (d, d_ff), ("embed", "ff"), dtype=dtype)
+    reg.add(f"{p}/w_v", (d_ff, d), ("ff", "embed"), dtype=dtype)
+    reg.add(f"{p}/w_r", (d, d), ("embed", "heads"), dtype=dtype)
 
 
 def _project(p, x, xprev):
@@ -69,7 +70,7 @@ def _project(p, x, xprev):
 def _group_norm(x, g, b, n_heads, eps=1e-5):
     """Per-head LayerNorm of the wkv output (RWKV GroupNorm(H))."""
     b_, t, d = x.shape
-    xh = x.reshape(b_, t, n_heads, d // n_heads).float()
+    xh = split_heads(x, n_heads, d // n_heads).float()
     mu = xh.mean(-1, keepdim=True)
     var = xh.var(-1, keepdim=True, unbiased=False)
     xh = (xh - mu) * torch.rsqrt(var + eps)
@@ -82,7 +83,9 @@ def time_mix(p, x, n_heads: int, head_dim: int, state=None, x_last=None, *, use_
     h, n = n_heads, head_dim
     xprev = _token_shift(x, x_last)
     r, k, v, g, logw = _project(p, x, xprev)
-    heads = lambda a: a.reshape(bsz, t, h, n)
+    # under a mesh the scan's operands meet its rule: batch over (pod,
+    # data), heads over "model" (kernels/sharded.py)
+    heads = lambda a: shard_hint(split_heads(a, h, n), batch_axes(), None, "model", None)
     s0 = None if state is None else state.float().contiguous()
     # the wkv output stays float32 up to the group norm, as in the reference
     wkv, s_fin = rwkv6_wkv(heads(r), heads(k), heads(v), heads(logw), p["u"].float(),
@@ -97,10 +100,8 @@ def time_mix_decode(p, x1, state, x_last, n_heads: int, head_dim: int):
     bsz, _, d = x1.shape
     h, n = n_heads, head_dim
     r, k, v, g, logw = _project(p, x1, x_last[:, None])
-    rh = r.reshape(bsz, h, n).float()
-    kh = k.reshape(bsz, h, n).float()
-    vh = v.reshape(bsz, h, n).float()
-    w = torch.exp(logw.reshape(bsz, h, n))
+    rh, kh, vh = (split_heads(a, h, n)[:, 0].float() for a in (r, k, v))
+    w = torch.exp(split_heads(logw, h, n)[:, 0])
     u = p["u"].float()
     kv = kh[..., :, None] * vh[..., None, :]
     out = torch.einsum("bhn,bhnm->bhm", rh, state + u[None, :, :, None] * kv)

@@ -18,39 +18,43 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from .attention import causal_attention, cross_attention, decode_attention
-from .common import Registry, cross_entropy_loss, dtype_of, gelu_mlp, layer_norm, sinusoidal_positions, sub
+from .common import (Registry, cross_entropy_loss, dtype_of, gelu_mlp, layer_norm, shard_hint, sinusoidal_positions,
+                     split_heads, sub)
 
 
 def _attn_p(reg, prefix, cfg, dtype):
     d = cfg.d_model
     h = cfg.n_heads * cfg.resolved_head_dim
-    for w, shape in (("wq", (d, h)), ("wk", (d, h)), ("wv", (d, h)), ("wo", (h, d))):
-        reg.add(f"{prefix}/{w}", shape, dtype=dtype)
+    for w, shape, axes in (("wq", (d, h), ("embed", "heads")), ("wk", (d, h), ("embed", "heads")),
+                           ("wv", (d, h), ("embed", "heads")), ("wo", (h, d), ("heads", "embed"))):
+        reg.add(f"{prefix}/{w}", shape, axes, dtype=dtype)
     for b, n in (("bq", h), ("bv", h), ("bo", d)):
-        reg.add(f"{prefix}/{b}", (n,), zeros=True, dtype=dtype)
+        reg.add(f"{prefix}/{b}", (n,), ("heads" if n == h else "embed",), zeros=True, dtype=dtype)
 
 
 def _mlp_p(reg, prefix, cfg, dtype):
     d, f = cfg.d_model, cfg.d_ff
-    reg.add(f"{prefix}/w1", (d, f), dtype=dtype)
-    reg.add(f"{prefix}/b1", (f,), zeros=True, dtype=dtype)
-    reg.add(f"{prefix}/w2", (f, d), dtype=dtype)
-    reg.add(f"{prefix}/b2", (d,), zeros=True, dtype=dtype)
+    reg.add(f"{prefix}/w1", (d, f), ("embed", "ff"), dtype=dtype)
+    reg.add(f"{prefix}/b1", (f,), ("ff",), zeros=True, dtype=dtype)
+    reg.add(f"{prefix}/w2", (f, d), ("ff", "embed"), dtype=dtype)
+    reg.add(f"{prefix}/b2", (d,), ("embed",), zeros=True, dtype=dtype)
 
 
 def _ln_p(reg, prefix, cfg, dtype):
-    reg.add(f"{prefix}_g", (cfg.d_model,), zeros=True, dtype=dtype)
-    reg.add(f"{prefix}_b", (cfg.d_model,), zeros=True, dtype=dtype)
+    reg.add(f"{prefix}_g", (cfg.d_model,), ("embed",), zeros=True, dtype=dtype)
+    reg.add(f"{prefix}_b", (cfg.d_model,), ("embed",), zeros=True, dtype=dtype)
 
 
-def init_whisper(cfg, generator: torch.Generator, device: torch.device) -> Dict[str, torch.Tensor]:
+def init_whisper(cfg, generator, device: torch.device) -> Registry:
+    """Parameters and logical axes (``.params``, ``.axes``), as ``lm.init_lm``."""
     from .lm import padded_vocab
 
     dtype = dtype_of(cfg)
     reg = Registry(generator, device)
-    reg.add("embed", (padded_vocab(cfg), cfg.d_model), scale=0.02, dtype=dtype)
+    reg.add("embed", (padded_vocab(cfg), cfg.d_model), ("vocab", "embed"), scale=0.02, dtype=dtype)
     for name, n, cross in (("enc", cfg.n_enc_layers, False), ("dec", cfg.n_layers, True)):
         blk = Registry(generator, device, layers=n)
         _ln_p(blk, f"{name}/ln1", cfg, dtype)
@@ -61,9 +65,10 @@ def init_whisper(cfg, generator: torch.Generator, device: torch.device) -> Dict[
         _ln_p(blk, f"{name}/ln3", cfg, dtype)
         _mlp_p(blk, f"{name}/mlp", cfg, dtype)
         reg.params.update(blk.params)
+        reg.axes.update(blk.axes)
     _ln_p(reg, "enc_lnf", cfg, dtype)
     _ln_p(reg, "dec_lnf", cfg, dtype)
-    return reg.params
+    return reg
 
 
 def _stack(params: Dict, name: str, n: int):
@@ -75,7 +80,7 @@ def _stack(params: Dict, name: str, n: int):
 
 
 def _heads(t, cfg):
-    return t.reshape(t.shape[0], t.shape[1], cfg.n_heads, cfg.resolved_head_dim)
+    return split_heads(t, cfg.n_heads, cfg.resolved_head_dim)
 
 
 def _proj_qkv(p, x, cfg):
@@ -113,7 +118,10 @@ def whisper_forward(cfg, params: Dict, enc_embeds, tokens, *, use_kernel: bool =
     """Teacher-forced decoder over the full token sequence -> logits
     [B, S, V_padded].  ``use_kernel=False`` takes flash's plain version."""
     enc = whisper_encode(cfg, params, enc_embeds)
-    x = params["embed"][tokens]
+    # under a mesh the (small) table is gathered whole first: the lookup of a
+    # vocab-sharded one is a masked partial sum, whose gradient DTensor
+    # cannot take back from the tied head's
+    x = F.embedding(tokens, shard_hint(params["embed"], None, None))
     x = x + _positions(cfg, x.shape[1], x)
     for lp in _stack(params, "dec", cfg.n_layers):
         sp, cp = sub(lp, "self"), sub(lp, "cross")
@@ -128,9 +136,8 @@ def whisper_forward(cfg, params: Dict, enc_embeds, tokens, *, use_kernel: bool =
 def whisper_loss(cfg, params: Dict, batch: Dict, *, use_kernel: bool = True):
     """batch: enc_embeds [B,F,D], tokens [B,S], labels [B,S] (-1 = masked)."""
     logits = whisper_forward(cfg, params, batch["enc_embeds"], batch["tokens"], use_kernel=use_kernel)
-    logits = logits[..., : cfg.vocab_size]
     labels = batch["labels"]
-    return cross_entropy_loss(logits, torch.clamp(labels, min=0), mask=labels >= 0)
+    return cross_entropy_loss(logits, torch.clamp(labels, min=0), mask=labels >= 0, vocab=cfg.vocab_size)
 
 
 # ------------------------------------------------------------------ decode
@@ -141,6 +148,12 @@ def init_whisper_cache(cfg, batch: int, cache_len: int, device: torch.device) ->
     z = lambda s: torch.zeros(lead + (s,) + heads, dtype=dtype, device=device)
     return {"self_k": z(cache_len), "self_v": z(cache_len), "cross_k": z(cfg.enc_seq_len),
             "cross_v": z(cfg.enc_seq_len)}
+
+
+def decode_cache_axes(cfg) -> Dict:
+    a = ("layers", "cache_batch", "cache_seq", "heads", "head_dim")
+    c = ("layers", "cache_batch", "frames", "heads", "head_dim")
+    return {"self_k": a, "self_v": a, "cross_k": c, "cross_v": c}
 
 
 def whisper_prime_cache(cfg, params: Dict, cache: Dict, enc_embeds):
@@ -158,7 +171,7 @@ def whisper_decode_step(cfg, params: Dict, cache: Dict, token, pos: int):
     """token [B] int, pos int -> (logits [B,V_padded], cache), the step's
     self-attention keys and values written into ``cache`` in place."""
     pos = int(pos)
-    x1 = params["embed"][token][:, None, :]
+    x1 = F.embedding(token, shard_hint(params["embed"], None, None))[:, None, :]
     # the current position's sinusoid, in float32 as the reference computes it
     dim = torch.arange(cfg.d_model // 2, dtype=torch.float32, device=x1.device)
     ang = float(pos) / torch.pow(torch.tensor(10000.0, device=x1.device), 2 * dim / cfg.d_model)

@@ -12,9 +12,14 @@ The reference's layout and protocol (``repro.train.checkpoint``):
 
 ``arrays.npz`` holds each tensor as numpy; numpy has no bfloat16, so a bf16
 tensor is stored as its uint16 bits and its manifest entry says
-``"bfloat16"``.  ``restore(device=)`` puts the arrays on one device, where
-the reference re-shards them onto a mesh (restoring onto another mesh
-waits for the port's multi-card training).
+``"bfloat16"``.  A DTensor is saved whole (``full_tensor()``, a collective
+that every rank of its mesh joins), so a checkpoint is free of any mesh;
+under a mesh only the manager built with ``writer=True`` (rank 0) writes.
+``restore(device=)`` puts the arrays on one device; with ``mesh`` and
+``shardings`` (path -> placements) each rank reads the whole file and
+keeps its own shard of every listed array (``distribute_tensor`` without
+communication): the reference's elastic restore onto a mesh that need not
+be the one that saved.
 """
 from __future__ import annotations
 
@@ -34,8 +39,11 @@ from ..device import resolve_device
 
 
 def _to_host(t: torch.Tensor):
-    """(numpy array, manifest dtype name) of a tensor."""
-    t = t.detach().cpu()
+    """(numpy array, manifest dtype name) of a tensor, of a DTensor whole."""
+    from ..models.common import is_dtensor
+
+    t = t.detach()
+    t = (t.full_tensor() if is_dtensor(t) else t).cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     a = t.numpy()
@@ -49,22 +57,27 @@ def _from_host(a: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, writer: bool = True):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.writer = writer  # under a mesh: the one rank that writes
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
     # ----------------------------------------------------------------- save
     def save(self, step: int, arrays: Dict[str, torch.Tensor], meta: Optional[Dict] = None):
         """Blocking save of a flat dict of tensors + JSON-able metadata."""
-        self._write(step, {k: _to_host(v) for k, v in arrays.items()}, meta or {})
+        host = {k: _to_host(v) for k, v in arrays.items()}
+        if self.writer:
+            self._write(step, host, meta or {})
 
     def save_async(self, step: int, arrays: Dict[str, torch.Tensor], meta: Optional[Dict] = None):
         """Snapshot to host now, write in the background."""
         self.wait()  # one in-flight checkpoint at a time
         host = {k: _to_host(v) for k, v in arrays.items()}
+        if not self.writer:
+            return
         meta = dict(meta or {})
 
         def work():
@@ -124,9 +137,10 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, device=None):
+    def restore(self, step: Optional[int] = None, device=None, *, mesh=None, shardings: Optional[Dict] = None):
         """Returns (step, arrays, meta), the arrays as tensors on ``device``
-        (``None`` means the CUDA card) in their saved dtypes."""
+        (``None`` means the CUDA card) in their saved dtypes; each array that
+        ``shardings`` lists as a DTensor on ``mesh`` with those placements."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no complete checkpoint in {self.dir}")
@@ -135,4 +149,9 @@ class CheckpointManager:
         manifest = json.loads((d / "manifest.json").read_text())
         with np.load(d / "arrays.npz") as data:
             arrays = {k: _from_host(data[k], info["dtype"]).to(dev) for k, info in manifest["arrays"].items()}
+        if shardings:
+            from torch.distributed.tensor import distribute_tensor
+
+            arrays = {k: distribute_tensor(v, mesh, shardings[k], src_data_rank=None) if k in shardings else v
+                      for k, v in arrays.items()}
         return step, arrays, manifest["meta"]

@@ -316,8 +316,10 @@ def test_train_loop_end_to_end(tmp_path):
 
 
 def test_train_cli_refuses_model_parallel_mesh(tmp_path):
+    """--mesh-model 2 needs a world of ranks it divides (torchrun); a plain
+    process is a world of one, and the CLI refuses it."""
     from repro_torch.launch.train import main
 
-    with pytest.raises(NotImplementedError, match="13 item 5"):
+    with pytest.raises(ValueError, match="does not divide the world of 1"):
         main(["--arch", "granite_3_2b", "--smoke", "--device", "cpu", "--mesh-model", "2",
               "--checkpoint-dir", str(tmp_path)])
