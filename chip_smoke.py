@@ -131,20 +131,27 @@ Phases (any failure exits non-zero):
   20. LM training on the card: the flash attention and RWKV6 scan backward
      kernels alone against autograd through their plain versions (per
      tensor relative L2) at the training shapes in bf16 and float32, at
-     the smoke D=16 and at flash's D=160 and 256, with planted-fault plain
-     gradients above the float32 limits; the kernel path's loss and every
-     float32 gradient at full width, 1 layer deep, against the plain
-     path's (a planted fault in the backward kernel's output and the
-     bf16-weights control above the limit); llama3_8b (4 of 32
-     layers) and rwkv6_3b (all 32) at full width in bf16 through
-     make_train_step, B=2 x S=2048 of the synthetic data, AdamW: a warm-up
-     step and 3 timed steps (seconds, tokens/s, peak memory, loss, grad
-     norm, launches by variant, held to each forward kernel twice per
-     layer and each backward kernel once, flash's as the variants the
-     wrappers pick: flash_wgmma and bwd_wgmma); each backward kernel timed
-     against its plain version (flash's bwd_wgmma also against bwd_mma
-     forced and the backward of scaled_dot_product_attention) with its
-     bound; then
+     the smoke D=16 and at flash's D=160 and 256 (small, and at
+     pixtral_12b's and recurrentgemma_2b's training shapes), with
+     planted-fault plain gradients above the float32 limits (and above
+     the bf16 limit at D 160 and 256); the kernel path's loss and every
+     float32 gradient at full width (1 layer deep; recurrentgemma_2b 3,
+     its first attention layer) against the plain path's (a planted fault
+     in the backward kernel's output and the bf16-weights control above
+     the limit); llama3_8b (4 of 32 layers), rwkv6_3b (all 32),
+     pixtral_12b (4 of 40) and recurrentgemma_2b (all 26) at full width
+     in bf16 through make_train_step, B=2 x S=2048 of the synthetic data
+     (pixtral_12b: 256 patch embeddings and 1792 tokens), AdamW: a
+     warm-up step and 3 timed steps (seconds, tokens/s, peak memory,
+     loss, grad norm, launches by variant, held to each forward kernel
+     twice per layer and each backward kernel once, flash's as the
+     variants the wrappers pick: flash_wgmma and bwd_wgmma), then at D 160
+     and 256 2 steps with bwd_simple forced (the parent's backward);
+     each backward kernel timed against its plain version (flash's
+     bwd_wgmma at llama3_8b's shape also against bwd_mma forced, at
+     pixtral_12b's and recurrentgemma_2b's against bwd_simple forced, and
+     at all three against the backward of scaled_dot_product_attention,
+     its backend named) with its bound; then
      launch/train.main --arch llama3_8b --layers 4 --steps 3 at B=2 x S=2048
      (phase 21 reuses its losses);
   21. training under a data x model mesh, ranks sharing the card under
@@ -278,10 +285,19 @@ FAMILIES = {
 # layers: bf16 weights and gradients and float32 moments take 12 bytes a
 # parameter (~96 GB whole); 4 layers keep its 128,256-row embedding and head
 # (1.9 B parameters, ~23 GB of state).  rwkv6_3b at all 32 layers (3.1 B,
-# ~37 GB).  The float32 gradient check runs 1 layer deep (the plain path's
-# [B, H, S, S] scores and the plain scan's T-step autograd loop).
-TRAIN_ARCHS = {"llama3_8b": dict(layers=4, f32_layers=1), "rwkv6_3b": dict(layers=None, f32_layers=1)}
+# ~37 GB).  pixtral_12b at 4 of 40 (all 40 would be ~154 GB; 4 keep its
+# 131,072-row embedding and head: 2.5 B, ~30 GB), recurrentgemma_2b at all
+# 26 (2.7 B, ~32 GB; its window of 2048 makes its 8 attention layers causal
+# at S=2048: flash forward and backward).  The float32 gradient check runs
+# 1 layer deep (the plain path's [B, H, S, S] scores and the plain scan's
+# T-step autograd loop); recurrentgemma_2b 3, since its pattern (rglru,
+# rglru, attn) puts its first attention layer third.
+TRAIN_ARCHS = {"llama3_8b": dict(layers=4, f32_layers=1), "rwkv6_3b": dict(layers=None, f32_layers=1),
+               "pixtral_12b": dict(layers=4, f32_layers=1), "recurrentgemma_2b": dict(layers=None, f32_layers=3)}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+# steps timed with flash's backward forced to bwd_simple (the parent's at D
+# 160 and 256) after the timed steps of those families
+BASELINE_STEPS = 2
 # the train CLI at the training shape; phase 21's one-device reference of
 # llama3_8b's meshes (the same arguments: its run is reused)
 TRAIN_CLI = ["--arch", "llama3_8b", "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--steps",
@@ -1788,8 +1804,10 @@ def backward_kernel_cases(dev):
     version, per tensor relative L2: at the training shapes in bf16 and
     float32, at the smoke D=16 and (flash) at D=160 and 256; at the float32
     training shapes, plain gradients with a planted fault must read above
-    the float32 limit."""
+    the float32 limit, and at flash's D 160 and 256 training shapes in
+    bf16, coarser planted faults above the bf16 limit."""
     from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as flash_ops
 
     g = torch.Generator(device=dev).manual_seed(20)
     worst = {"flash_attention_bwd": {}, "rwkv6_scan_bwd": {}}
@@ -1803,7 +1821,9 @@ def backward_kernel_cases(dev):
             fail(f"{name} {label} {dtype}: d{key} rel L2 {rel:.3e} > {tol}")
         return want
 
-    flash_cases = [(TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128), (2, 37, 4, 4, 16), (1, 300, 8, 2, 160), (1, 300, 10, 1, 256)]
+    # llama3_8b's, pixtral_12b's and recurrentgemma_2b's training shapes, then small ones
+    flash_cases = [(TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128), (TRAIN_BATCH, TRAIN_SEQ, 32, 8, 160),
+                   (TRAIN_BATCH, TRAIN_SEQ, 10, 1, 256), (2, 37, 4, 4, 16), (1, 300, 8, 2, 160), (1, 300, 10, 1, 256)]
     for dtype in (torch.float32, torch.bfloat16):
         for b, s, h, hkv, d in flash_cases:
             q, k, v, do = flash_inputs(dev, g, dtype, b, s, h, hkv, d)
@@ -1814,8 +1834,11 @@ def backward_kernel_cases(dev):
                 fail(f"flash backward at D={d} did not launch its kernel once")
             want = check("flash_attention_bwd", dtype, f"B={b} S={s} H={h} Hkv={hkv} D={d}", got,
                          flash_grads(q, k, v, do, use_kernel=False))
-            if dtype == torch.float32 and s == TRAIN_SEQ:
-                controls["flash_attention_bwd"] = flash_bwd_controls(q, k, v, do, want)
+            if s == TRAIN_SEQ and (dtype == torch.float32 or d in flash_ops.WIDE_HEAD_DIMS):
+                # float32: the last query tile's diagonal key tile dropped; bf16 (a limit
+                # 1000x coarser): every query tile's
+                controls[("flash_attention_bwd", dtype, d)] = flash_bwd_controls(
+                    q, k, v, do, want, rows=64 if dtype == torch.float32 else s)
             del q, k, v, do, got, want
         # the last case carries an initial state that takes a gradient and a
         # loss on the final state (dS0 and dS_fin, held to the float32 limit)
@@ -1836,37 +1859,37 @@ def backward_kernel_cases(dev):
             check("rwkv6_scan_bwd", torch.float32, f"{label} ({', '.join(f32)})",
                   {x: got[x] for x in f32}, {x: want[x] for x in f32})
             if dtype == torch.float32 and t == TRAIN_SEQ:
-                controls["rwkv6_scan_bwd"] = scan_bwd_controls(r, k, v, do, u, want)
+                controls[("rwkv6_scan_bwd", dtype, n)] = scan_bwd_controls(r, k, v, do, u, want)
             del r, k, v, logw, u, do, s0, ds_fin, got, want
-    for name, faults in controls.items():
-        tol = BWD_TOL[name][torch.float32]
+    for (name, dtype, d), faults in controls.items():
+        tol = BWD_TOL[name][dtype]
         log(f"  {name} worst per-tensor rel L2 vs plain: " + ", ".join(f"{k} {v:.2e}" for k, v in worst[name].items())
-            + "; planted-fault controls (float32) " + ", ".join(f"{c} {x:.3e}" for c, x in faults.items())
-            + f", limit {tol}")
+            + f"; planted-fault controls ({str(dtype)[6:]}, head dim {d}) "
+            + ", ".join(f"{c} {x:.3e}" for c, x in faults.items()) + f", limit {tol}")
         if not min(faults.values()) > tol:
-            fail(f"the float32 {name} limit {tol} does not reject every planted fault: {faults}")
+            fail(f"the {dtype} {name} limit {tol} does not reject every planted fault at head dim {d}: {faults}")
     torch.cuda.empty_cache()
-    return {"worst": worst, "controls": controls}
+    return {"worst": worst, "controls": {f"{name} {str(dtype)[6:]} {d}": f for (name, dtype, d), f in controls.items()}}
 
 
-def flash_bwd_controls(q, k, v, do, want, tile: int = 64) -> dict:
+def flash_bwd_controls(q, k, v, do, want, tile: int = 64, rows: int = 64) -> dict:
     """The plain gradients with a planted fault, each held against ``want``
-    by the per-tensor metric: dq of the last query tile without its
-    diagonal key tile; dk and dv without the last query head of each GQA
-    group."""
+    by the per-tensor metric: dq of the last ``rows`` queries (S a multiple
+    of ``tile``) without their diagonal key tiles; dk and dv without the
+    last query head of each GQA group."""
     b, s, h, d = q.shape
     rep = h // k.shape[2]
-    qr, dor = q[:, s - tile:].float(), do[:, s - tile:].float()
+    qr, dor = q[:, s - rows:].float(), do[:, s - rows:].float()
     kk, vv = (a.float().repeat_interleave(rep, dim=2) for a in (k, v))
     logits = torch.einsum("bqhd,bkhd->bhqk", qr, kk) / d**0.5
-    causal = torch.arange(s, device=q.device)[None, :] <= torch.arange(s - tile, s, device=q.device)[:, None]
-    p = torch.softmax(torch.where(causal, logits, -torch.inf), dim=-1)
+    kpos, qpos = torch.arange(s, device=q.device)[None, :], torch.arange(s - rows, s, device=q.device)[:, None]
+    p = torch.softmax(torch.where(kpos <= qpos, logits, -torch.inf), dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, vv)
     dp = torch.einsum("bqhd,bkhd->bhqk", dor, vv)
     ds = p * (dp - (dor * o).sum(-1).transpose(1, 2)[..., None])
-    ds[..., s - tile:] = 0.0  # the diagonal key tile dropped
+    ds = torch.where(kpos // tile == qpos // tile, 0.0, ds)  # the diagonal key tiles dropped
     dq = want["q"].clone()
-    dq[:, s - tile:] = (torch.einsum("bhqk,bkhd->bqhd", ds, kk) / d**0.5).to(dq.dtype)
+    dq[:, s - rows:] = (torch.einsum("bhqk,bkhd->bqhd", ds, kk) / d**0.5).to(dq.dtype)
     del logits, p, dp, ds
     # per query head gradients of k and v through the plain version, then the group sums without one head
     kx, vx = (a.repeat_interleave(rep, dim=2).detach().requires_grad_(True) for a in (k, v))
@@ -1886,6 +1909,22 @@ def scan_bwd_controls(r, k, v, do, u, want) -> dict:
     return {name: grad_rel(f, {x: want[x] for x in f})[0] for name, f in faults.items()}
 
 
+def train_data(cfg, dev, seed: int):
+    """The synthetic batches of phase 20 at B x S = TRAIN_BATCH x TRAIN_SEQ
+    positions: a VLM's TRAIN_SEQ take its patch embeddings (standard
+    normal draws, from ``seed``) first, then the tokens."""
+    from repro_torch.train.data import SyntheticLM
+
+    patches = cfg.n_patches if cfg.family == "vlm" else 0
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ - patches, TRAIN_BATCH, seed=seed, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    for batch in data:
+        if patches:
+            batch["patch_embeds"] = torch.randn(TRAIN_BATCH, patches, cfg.d_model, generator=g, device=dev).to(dtype)
+        yield batch
+
+
 def train_grads_vs_plain(arch: str, dev, layers: int) -> dict:
     """At full width, ``layers`` deep, float32 weights: loss and every
     gradient of the kernel path (flash or the scan, forward and backward)
@@ -1899,12 +1938,11 @@ def train_grads_vs_plain(arch: str, dev, layers: int) -> dict:
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rwkv6_scan import ops as scan_ops
     from repro_torch.launch.specs import loss_and_grads
-    from repro_torch.train.data import SyntheticLM
 
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
     params = models.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    batch = next(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1, device=dev))
+    batch = next(train_data(cfg, dev, seed=1))
     want_loss, want = loss_and_grads(cfg, params, batch, use_kernel=False)
     loss, got = loss_and_grads(cfg, params, batch)
     rel, key = grad_rel(got, want)
@@ -1925,6 +1963,7 @@ def train_grads_vs_plain(arch: str, dev, layers: int) -> dict:
     fault = grad_rel(bad, want)[0]
     del bad
     params = {k: v.bfloat16() for k, v in params.items()}
+    batch = {k: v.bfloat16() if v.is_floating_point() else v for k, v in batch.items()}
     _, bf = loss_and_grads(dataclasses.replace(cfg, dtype="bfloat16"), params, batch, use_kernel=False)
     control, control_key = grad_rel(bf, want)
     del params, bf, want
@@ -1950,12 +1989,13 @@ def train_run(arch: str, dev, layers) -> dict:
     peak memory, loss, grad norm and the launches of every kernel by
     variant (counts set to 0 before the step), held to the design's
     counts: each forward kernel twice per layer (the forward and the
-    checkpointed block's recompute), each backward kernel once."""
+    checkpointed block's recompute), each backward kernel once.  At flash's
+    D 160 and 256, then BASELINE_STEPS steps with the backward forced to
+    bwd_simple (the parent's), timed alike."""
     from repro_torch import kernels, models
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch.specs import make_train_step
-    from repro_torch.train.data import SyntheticLM
     from repro_torch.train.optim import OptConfig, init_opt_state
 
     t_start = time.perf_counter()
@@ -1965,8 +2005,8 @@ def train_run(arch: str, dev, layers) -> dict:
     params = models.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     n_params = sum(p.numel() for p in params.values())
     opt = init_opt_state(params)
-    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0, device=dev)
-    step = make_train_step(cfg, OptConfig(warmup_steps=1, total_steps=TRAIN_STEPS + 1))
+    data = train_data(cfg, dev, seed=0)
+    step = make_train_step(cfg, OptConfig(warmup_steps=1, total_steps=TRAIN_STEPS + 1 + BASELINE_STEPS))
     fwd, bwd = ("rwkv6_scan", "rwkv6_scan_bwd") if cfg.family == "ssm" else ("flash_attention", "flash_attention_bwd")
     n = cfg.n_layers if cfg.family == "ssm" else cfg.layer_kinds().count("attn")
     rec = dict(arch=arch, layers=cfg.n_layers, params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -1993,13 +2033,33 @@ def train_run(arch: str, dev, layers) -> dict:
         want = {fwd: 2 * n, bwd: n}
         if row["launches"] != want:
             fail(f"{arch} training step {i} launched {row['launches']}, not {want}")
-        if cfg.family != "ssm":  # bf16 flash: the variants the wrappers pick at this head dim
-            d = cfg.resolved_head_dim
-            want = {fwd: {flash_ops.variant(torch.bfloat16, d): 2 * n}, bwd: {flash_ops.bwd_variant(torch.bfloat16, d): n}}
+        if cfg.family != "ssm":  # bf16 flash: TMA + wgmma both ways at every family's head dim
+            want = {fwd: {"flash_wgmma": 2 * n}, bwd: {"bwd_wgmma": n}}
             if row["variants"] != want:
                 fail(f"{arch} training step {i} launched flash as {row['variants']}, not {want}")
         elif row["variants"][bwd] != {f"chunk{cfg.rwkv_head_dim}": n}:
             fail(f"{arch} training step {i} launched the scan backward as {row['variants'][bwd]}")
+    if cfg.family != "ssm" and cfg.resolved_head_dim in flash_ops.WIDE_HEAD_DIMS:
+        chosen = flash_ops.bwd_variant
+        flash_ops.bwd_variant = lambda dtype, d: "bwd_simple"
+        try:
+            baseline = []
+            for _ in range(BASELINE_STEPS):
+                batch = next(data)
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                params, opt, metrics = step(params, opt, batch)
+                torch.cuda.synchronize()
+                baseline.append(time.perf_counter() - t0)
+                if {k: c for k, c in kernels.VARIANT_LAUNCHES[bwd].items() if c} != {"bwd_simple": n}:
+                    fail(f"{arch}: the step with bwd_simple forced launched {kernels.VARIANT_LAUNCHES[bwd]}")
+                if not np.isfinite(float(metrics["loss"])):
+                    fail(f"{arch}: the step with bwd_simple forced gave loss {float(metrics['loss'])}")
+        finally:
+            flash_ops.bwd_variant = chosen
+        rec["bwd_simple_step_s"] = baseline
+        log(f"  {arch} with bwd_simple forced (the parent's backward): steps {[round(x, 3) for x in baseline]} s")
     del params, opt
     torch.cuda.empty_cache()
     rec.update(wall_s=time.perf_counter() - t_start, launches=rec["steps"][-1]["launches"],
@@ -2332,46 +2392,67 @@ def mesh_paths(entry: dict, name: str, meshed: dict) -> None:
                 launches=per_rank, shapes=[s.get(name) for s in r["shapes"]])
 
 
-def backward_timings(dev) -> dict:
-    """Each backward kernel timed alone at its training shape in bf16
-    beside its plain version's backward (autograd through ref.py) and, for
-    flash, the backward of scaled_dot_product_attention(is_causal=True);
-    each with its bound.  FA2's backward does 2.5 times the forward's
-    matrix operations (five products of the causal pairs, not two); the
-    scan's backward 12 N^2 operations per token and head, priced as the
-    forward scan's bound prices them (products at the tensor cores' TF32
-    rate over their split passes, the rest at 67 TFLOP/s), with every
-    operation at 67 TFLOP/s logged beside it."""
+def flash_bwd_timing(dev, g, b: int, s: int, h: int, hkv: int, d: int, forced: str) -> dict:
+    """flash's backward at one bf16 shape, one launch: the kernel the
+    wrapper picks, ``forced`` (another variant, as ``<forced>_ms``), the
+    plain version's backward and the backward of
+    scaled_dot_product_attention (is_causal, enable_gqa; its backend
+    named), each the faster of two CUDA-event means; with the kernel's
+    error against plain and its bound."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.rwkv6_scan import ops as scan_ops
 
-    g = torch.Generator(device=dev).manual_seed(21)
-    rows = {}
-    b, s, h, hkv, d = TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128
     q, k, v, do = flash_inputs(dev, g, torch.bfloat16, b, s, h, hkv, d)
     o, lse = flash_ops._launch(q, k, v, with_lse=True)
     leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
     plain_o = flash_ops.flash_attention_bshd(*leaves, use_kernel=False)
     sdpa_in = [a.detach().transpose(1, 2).requires_grad_(True) for a in (q, k, v)]
+    backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(*sdpa_in, is_causal=True, enable_gqa=True)).name
     sdpa_o = torch.nn.functional.scaled_dot_product_attention(*sdpa_in, is_causal=True, enable_gqa=True)
     sdpa_do = do.transpose(1, 2)
-    fns = dict(ms=lambda: flash_ops._launch_bwd(q, k, v, o, lse, do),
-               plain_ms=lambda: torch.autograd.grad(plain_o, leaves, do, retain_graph=True),
-               library_ms=lambda: torch.autograd.grad(sdpa_o, sdpa_in, sdpa_do, retain_graph=True),
-               mma_ms=lambda: flash_ops._launch_bwd(q, k, v, o, lse, do, kind="bwd_mma"))
+    key = f"{forced.split('_')[1]}_ms"
+    fns = {"ms": lambda: flash_ops._launch_bwd(q, k, v, o, lse, do),
+           "plain_ms": lambda: torch.autograd.grad(plain_o, leaves, do, retain_graph=True),
+           "library_ms": lambda: torch.autograd.grad(sdpa_o, sdpa_in, sdpa_do, retain_graph=True),
+           key: lambda: flash_ops._launch_bwd(q, k, v, o, lse, do, kind=forced)}
     got = fns["ms"]()
     want = fns["plain_ms"]()
     rel = grad_rel(dict(zip("qkv", got)), dict(zip("qkv", want)))[0]
-    mma_rel = grad_rel(dict(zip("qkv", fns["mma_ms"]())), dict(zip("qkv", want)))[0]
+    forced_rel = grad_rel(dict(zip("qkv", fns[key]())), dict(zip("qkv", want)))[0]
     ops = 2.5 * 4.0 * d * b * h * s * (s + 1) / 2
     nbytes = 2.0 * (3 * b * s * h * d + 4 * b * s * hkv * d) + 4.0 * b * h * s  # q, o, do, dq; k, v, dk, dv; lse
-    rows["flash_attention_bwd"] = dict(
-        shape=dict(B=b, S=s, H=h, Hkv=hkv, D=d, dtype="bfloat16"), variant=flash_ops.bwd_variant(torch.bfloat16, d),
-        rel_l2=rel, max_abs_err=max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want)),
-        mma_rel_l2=mma_rel, ops=ops, bytes=nbytes, **timed(fns, dict(ms=10, plain_ms=3, library_ms=10, mma_ms=10)),
-        **bound(ops, 989e12, nbytes))
+    row = dict(shape=dict(B=b, S=s, H=h, Hkv=hkv, D=d, dtype="bfloat16"), variant=flash_ops.bwd_variant(torch.bfloat16, d),
+               splits=flash_ops.bwd_splits(b, s, h, hkv, d, torch.cuda.get_device_properties(dev).multi_processor_count),
+               rel_l2=rel, max_abs_err=max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want)),
+               forced=forced, forced_rel_l2=forced_rel, library_backend=backend, ops=ops, bytes=nbytes,
+               **timed(fns, {"ms": 10, "plain_ms": 3, "library_ms": 10, key: 3 if forced == "bwd_simple" else 10}),
+               **bound(ops, 989e12, nbytes))
     del q, k, v, do, o, lse, leaves, plain_o, sdpa_in, sdpa_o, sdpa_do, fns, got, want
     torch.cuda.empty_cache()
+    return row
+
+
+def backward_timings(dev) -> dict:
+    """Each backward kernel timed alone at its training shape in bf16
+    beside its plain version's backward (autograd through ref.py) and, for
+    flash, the backward of scaled_dot_product_attention(is_causal=True);
+    each with its bound.  Flash at llama3_8b's shape (with bwd_mma forced
+    beside it) and at pixtral_12b's and recurrentgemma_2b's (D 160 and 256,
+    with bwd_simple, the parent's, forced beside it), keyed
+    ``flash_attention_bwd`` and ``flash_attention_bwd@<arch>``.  FA2's
+    backward does 2.5 times the forward's matrix operations (five products
+    of the causal pairs, not two); the scan's backward 12 N^2 operations
+    per token and head, priced as the forward scan's bound prices them
+    (products at the tensor cores' TF32 rate over their split passes, the
+    rest at 67 TFLOP/s), with every operation at 67 TFLOP/s logged beside
+    it."""
+    from repro_torch.kernels.rwkv6_scan import ops as scan_ops
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = {"flash_attention_bwd": flash_bwd_timing(dev, g, TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128, "bwd_mma"),
+            "flash_attention_bwd@pixtral_12b": flash_bwd_timing(dev, g, TRAIN_BATCH, TRAIN_SEQ, 32, 8, 160,
+                                                                "bwd_simple"),
+            "flash_attention_bwd@recurrentgemma_2b": flash_bwd_timing(dev, g, TRAIN_BATCH, TRAIN_SEQ, 10, 1, 256,
+                                                                      "bwd_simple")}
 
     b, t, h, n = TRAIN_BATCH, TRAIN_SEQ, 40, 64
     r, k, v, logw, u, do = scan_inputs(dev, g, torch.bfloat16, b, t, h, n)
@@ -2406,9 +2487,9 @@ def backward_timings(dev) -> dict:
     torch.cuda.empty_cache()
     for name, row in rows.items():
         log(f"  timing {name} " + json.dumps(row))
-        if not max(row["rel_l2"], row.get("mma_rel_l2", 0.0)) <= BWD_TOL[name][torch.bfloat16]:
+        if not max(row["rel_l2"], row.get("forced_rel_l2", 0.0)) <= BWD_TOL[name.split("@")[0]][torch.bfloat16]:
             fail(f"{name} at the training shape: kernel vs plain rel L2 {row['rel_l2']:.3e} "
-                 f"(bwd_mma {row.get('mma_rel_l2')})")
+                 f"({row.get('forced')} {row.get('forced_rel_l2')})")
     return rows
 
 
@@ -2679,10 +2760,11 @@ def main():
                            k: r[k] for k in ("shape", "variant", "ms", "plain_ms", "bound_ms", "bound_by",
                                              "library_ms", "max_abs_err")}
                           for r in family_rows}})
-        train_run_rec = trained["runs"][arch]
-        entry["launches"] += sum(r["launches"][name] for r in train_run_rec["steps"])
-        entry.setdefault("paths", {})[f"{arch} training, {len(train_run_rec['steps'])} timed steps (phase 20)"] = dict(
-            launches=[r["variants"][name] for r in train_run_rec["steps"]])
+        for a, run in trained["runs"].items():
+            if name in run["launches"]:
+                entry["launches"] += sum(r["launches"][name] for r in run["steps"])
+                entry.setdefault("paths", {})[f"{a} training, {len(run['steps'])} timed steps (phase 20)"] = dict(
+                    launches=[r["variants"][name] for r in run["steps"]])
         mesh_paths(entry, name, meshed)
         entries.append(entry)
     for name, arch, src, replaces in (
@@ -2691,12 +2773,20 @@ def main():
         ("rwkv6_scan_bwd", "rwkv6_3b", "rwkv6_scan/rwkv6_scan_bwd.cu",
          "none; the reference differentiates src/repro/models/rwkv6.py:118-151 by autodiff"),
     ):
-        row, run = trained["timings"][name], trained["runs"][arch]
+        row = trained["timings"][name]
+        runs = {a: run for a, run in trained["runs"].items() if name in run["launches"]}
         entries.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/{src}", replaces=replaces,
-            launches=sum(r["launches"][name] for r in run["steps"]), max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
-            variants=[r["variants"][name] for r in run["steps"]], rel_l2=row["rel_l2"], shape=row["shape"]))
+            launches=sum(r["launches"][name] for run in runs.values() for r in run["steps"]),
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            variants=[r["variants"][name] for r in runs[arch]["steps"]], rel_l2=row["rel_l2"], shape=row["shape"],
+            paths={**{f"{a} training, {len(run['steps'])} timed steps (phase 20)": dict(
+                      launches=[r["variants"][name] for r in run["steps"]]) for a, run in runs.items()},
+                   **{f"{key.split('@')[1]}'s training shape (ms etc.)": {
+                       k: r[k] for k in ("shape", "variant", "splits", "ms", "simple_ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms", "library_backend", "max_abs_err", "rel_l2")}
+                      for key, r in trained["timings"].items() if key.startswith(f"{name}@")}}))
         mesh_paths(entries[-1], name, meshed)
     record["kernels"] = entries
     record["total_s"] = time.perf_counter() - t_start
@@ -2735,9 +2825,13 @@ def main():
             f"{[round(r['grad_norm'], 4) for r in run['steps']]}, launches a step {run['launches']}; float32 gradients "
             f"({f32['layers']} layer) kernel vs plain {f32['grad_rel_l2']:.2e} (control {f32['control_bf16_rel_l2']:.2e}, "
             f"limit {TRAIN_GRAD_TOL})")
+    for arch, run in trained["runs"].items():
+        if "bwd_simple_step_s" in run:
+            log(f"{arch} training step {run['step_s']:.3f} s; with bwd_simple forced (the parent's backward) "
+                f"{[round(x, 3) for x in run['bwd_simple_step_s']]} s")
     for name, row in trained["timings"].items():
-        lib = f", sdpa backward {row['library_ms']:.4f}" if row["library_ms"] is not None else ""
-        lib += f", bwd_mma forced {row['mma_ms']:.4f}" if "mma_ms" in row else ""
+        lib = f", sdpa backward {row['library_ms']:.4f} ({row['library_backend']})" if row["library_ms"] is not None else ""
+        lib += f", {row['forced']} forced {row[row['forced'].split('_')[1] + '_ms']:.4f}" if "forced" in row else ""
         log(f"{name} at {row['shape']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.3f}{lib}, bound {row['bound_ms']:.4f} "
             f"by {row['bound_by']}), rel L2 {row['rel_l2']:.2e}")
     log(f"phase 20: {trained['wall_s']:.1f} s")

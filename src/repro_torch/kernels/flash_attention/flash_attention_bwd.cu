@@ -30,9 +30,10 @@
 // accumulates in float32 registers, masks causally and past a ragged S, and
 // writes its gradients in the inputs' type.  Three variants, picked by the
 // caller from the dtype and D:
-//   bwd_wgmma   bfloat16, D in {64, 128} (the models' training path): Delta
-//               by one warp per row in 16-byte loads; dQ (128-query tiles)
-//               and dK/dV (128-key tiles) as flash_attention.cu's
+//   bwd_wgmma   bfloat16, D in {64, 128, 160, 256} (the models' training
+//               path): Delta by one warp per row in 16-byte loads; at D 64
+//               and 128, dQ (128-query tiles) and dK/dV (128-key tiles) as
+//               flash_attention.cu's
 //               flash_wgmma is built: a producer warpgroup streams 64-row
 //               tiles of the other side by TMA into a two-stage mbarrier
 //               ring, two consumer warpgroups of 64 own rows run the seven
@@ -42,11 +43,13 @@
 //               register-A fragment and K, dO, Q as MN-major B operands).
 //               lse and Delta vary along the columns of S^T: each consumer
 //               warpgroup copies the tile's 128 values to shared memory and
-//               meets at a named barrier.
+//               meets at a named barrier.  At D 160 and 256 on 64-row
+//               tiles with the consumers' roles split by gradient or by
+//               key tile (see "bwd_wgmma at D 160 / 256" below).
 //   bwd_mma     other bfloat16 with D % 16 == 0, D <= 128: the five products
 //               on mma.sync (tensor cores), 4 warps of 16 rows, loop tiles of
 //               64 staged through registers.
-//   bwd_simple  float32 and the rest (D up to 256): the products in float32
+//   bwd_simple  float32 and other D up to 256: the products in float32
 //               on the CUDA cores (flash_simple's 16 x 16 thread grid with
 //               micro-tiles in registers); loop tiles of 32 rows, own tiles
 //               of 64 (32 at D > 128, where the float32 staging of four
@@ -56,7 +59,8 @@
 // causal pairs instead of two), which at training shapes (S = 2048, D = 128)
 // is far above the bytes: the tensor cores bound it.  bwd_wgmma computes
 // seven (S and dP once in each of dQ and dK/dV), trading two products for
-// the atomics or second pass that a dQ summed inside the dK/dV CTA needs.
+// the atomics or second pass that a dQ summed inside the dK/dV CTA needs;
+// eight at D 160 / 256, where both dK/dV warpgroups compute S^T.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -594,7 +598,7 @@ int launch_mma(int B, int S, int H, int Hkv, int D, float scale, cudaStream_t st
 }
 
 // -------------------------------------------------------------- bwd_wgmma
-// bfloat16 with D in {64, 128}: flash_attention.cu's flash_wgmma design
+// bfloat16 with D in {64, 128} (D 160 / 256: below): flash_attention.cu's flash_wgmma design
 // (TMA into a two-stage mbarrier ring, warp-specialised wgmma) applied to
 // the backward, as three kernels on one stream: Delta, dQ, then dK/dV.
 // Each of dQ and dK/dV runs one CTA of three warpgroups per 128-row tile
@@ -631,28 +635,40 @@ struct BwdSmem {
 };
 
 // acc[64 rows x 64 cols] = A B^T over D: A 64 rows of an owned tile (panels
-// of G_OWN_PANEL bytes), B a streamed tile (panels of G_LOOP_PANEL), both
-// K-major; issued, not waited for
-template <int D>
+// A_PANEL bytes apart: G_OWN_PANEL for the 128-row tiles, G_LOOP_PANEL for
+// the 64-row ones of D 160 / 256), B a streamed tile (panels of
+// G_LOOP_PANEL), both K-major; k16 steps over D only (at D = 160 the
+// zero-filled columns 160-191 are skipped); issued, not waited for
+template <int D, int A_PANEL = G_OWN_PANEL>
 __device__ __forceinline__ void wgmma_scores(float (&acc)[32], uint32_t a, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(acc, sw128_desc(a + (kk / 4) * G_OWN_PANEL + (kk % 4) * 32, 16, 1024),
+    wgmma_ss_n64(acc, sw128_desc(a + (kk / 4) * A_PANEL + (kk % 4) * 32, 16, 1024),
                  sw128_desc(b + (kk / 4) * G_LOOP_PANEL + (kk % 4) * 32, 16, 1024), kk > 0);
 }
 
-// acc[64 rows x D] += X Y: X the 64 x 64 register-A fragments (k16 step kk
-// in x[kk]), Y a streamed [64, D] tile read as an MN-major B (8-row groups
-// 1024 bytes apart, panels G_LOOP_PANEL apart); issued, not waited for
-template <int D>
-__device__ __forceinline__ void wgmma_grad(float (&acc)[D / 2], const uint32_t (&x)[4][4], uint32_t y) {
+// acc[64 rows x DP] += X Y: X the 64 x 64 register-A fragments (k16 step kk
+// in x[kk]), Y a streamed [64, DP] tile read as an MN-major B (8-row groups
+// 1024 bytes apart, panels G_LOOP_PANEL apart); N = DP in one wgmma up to
+// 128 columns, above as n128 on panels 0-1 and n128 (DP = 256) or n64 (DP =
+// 192) on the rest, as flash_wgmma's P V; issued, not waited for
+template <int DP>
+__device__ __forceinline__ void wgmma_grad(float (&acc)[DP / 2], const uint32_t (&x)[4][4], uint32_t y) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t db = sw128_desc(y + kk * 16 * 128, G_LOOP_PANEL, 1024);
-    if constexpr (D == 128)
-      wgmma_rs_tb_n128(acc, x[kk], db);
-    else
+    if constexpr (DP == 64) {
       wgmma_rs_tb_n64(acc, x[kk], db);
+    } else if constexpr (DP == 128) {
+      wgmma_rs_tb_n128(acc, x[kk], db);
+    } else {
+      const uint64_t db2 = sw128_desc(y + 2 * G_LOOP_PANEL + kk * 16 * 128, G_LOOP_PANEL, 1024);
+      wgmma_rs_tb_n128(*reinterpret_cast<float(*)[64]>(acc), x[kk], db);
+      if constexpr (DP == 256)
+        wgmma_rs_tb_n128(*reinterpret_cast<float(*)[64]>(acc + 64), x[kk], db2);
+      else
+        wgmma_rs_tb_n64(*reinterpret_cast<float(*)[32]>(acc + 64), x[kk], db2);
+    }
   }
 }
 
@@ -975,6 +991,408 @@ __global__ void __launch_bounds__(G_THREADS, 1)
   }
 }
 
+// ------------------------------------------------ bwd_wgmma at D 160 / 256
+// The same three kernels (Delta, dQ, dK/dV) on tiles of 64 rows on both
+// sides, as flash_wgmma takes D 160 and 256 on key tiles of 64: D = 160 is
+// read as three 64-column panels (DP = 192), TMA zero-filling columns
+// 160-191, and the stores write D columns.  Why the tiles and the roles
+// differ from D 64 / 128:
+//   shared memory: owned tiles of 128 rows at D = 256 would take 2 x 64 KB
+//     beside 2 stages x 2 x 32 KB of streamed tiles, past the card's 227
+//     KB; with 64-row owned tiles it is 2 x 32 + 4 x 32 = 192 KB (D = 160:
+//     2 x 24 + 4 x 24 = 144 KB).
+//   registers: a warpgroup holding dK and dV of 64 keys x DP in float32
+//     needs DP / 2 + DP / 2 accumulators a thread (256 at D = 256) before
+//     the S and dP fragments (64), past setmaxnreg's 240.  So the two
+//     consumer warpgroups of the dK/dV kernel split the gradients, not the
+//     rows: both own the same 64 keys, warpgroup 0 accumulates dV (S^T, then
+//     dV += P^T dO: two products a tile) and warpgroup 1 dK (S^T and dP^T,
+//     then dK += dS^T Q: three), each DP / 2 + 64 + 16 registers at most.
+//     S^T is computed by both: one product of seven in all, against the
+//     shared-memory hand-over of P^T and a barrier between them that
+//     sharing it would take.  In the dQ kernel one warpgroup can hold its
+//     64 x DP dQ beside S and dP (DP / 2 + 64 + 16 = 208 at D = 256), so the
+//     two consumers split the key tiles instead (warpgroup c takes tiles
+//     c, c + 2, ...: none recomputed) and sum their dQ through shared
+//     memory at the end, warpgroup 0's then warpgroup 1's, in that order
+//     always; each stage of the two-stage ring then feeds one warpgroup.
+//   the grid of MQA: one dK/dV CTA per (key tile, batch, KV head) is 64
+//     CTAs at recurrentgemma_2b's B = 2, S = 2048, Hkv = 1, each walking 10
+//     query heads, on 132 SMs.  The caller may split each group's query
+//     heads over `splits` CTAs (blockIdx.z): each writes its float32 partial
+//     dK and dV to `part`, and a last kernel sums them in split order.
+constexpr int W_ROWS = 64;  // rows of every tile at D 160 / 256
+
+// Shared memory of one [64, DP] tile per operand: the two owned tiles, the
+// stages (a stage is its two streamed tiles, side by side), the lse and
+// Delta rows (dK/dV, as BwdSmem), the mbarriers (owned tiles, per stage
+// full, per stage empty).
+template <int D>
+struct WideSmem {
+  static constexpr int DP = (D + 63) / 64 * 64;
+  static constexpr int TILE = W_ROWS * DP * 2;
+  static constexpr int A = 0;
+  static constexpr int B = TILE;
+  static constexpr int X = 2 * TILE;  // stage s: its first tile at X + s * STAGE, its second TILE after
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int ROWS = X + G_STAGES * STAGE;
+  static constexpr int BAR = ROWS + 2 * 2 * 2 * W_ROWS * 4;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * G_STAGES) + 1024;  // + alignment slack
+  static_assert(STAGE == W_ROWS * DP * 4, "a stage holds a warpgroup's float32 64 x DP dQ");
+};
+
+// dQ at D 160 / 256: one CTA per (64-query tile, batch * head), longest
+// tiles first.  The producer streams key tiles 0 .. qt, tile it into stage
+// it % 2; consumer warpgroup c takes the tiles of its stage (c, c + 2, ...),
+// each as flash_bwd_dq_wgmma does (S, dP, dS masked on the diagonal tile
+// qt, dQ += dS K), then warpgroup 1 leaves its dQ in its stage and
+// warpgroup 0 adds it to its own and stores.
+template <int D>
+__global__ void __launch_bounds__(G_THREADS, 1)
+    flash_bwd_dq_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                      const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                      int S, int H, int Hkv, float scale) {
+  using L = WideSmem<D>;
+  constexpr int DP = L::DP, PANELS = DP / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_own = base + L::BAR;
+  const auto full = [&](int s) { return bar_own + 8u * (1 + s); };
+  const auto empty = [&](int s) { return bar_own + 8u * (1 + G_STAGES + s); };
+
+  const int nq = (S + W_ROWS - 1) / W_ROWS;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x), q0 = qt * W_ROWS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int nkt = qt + 1;  // key tiles up to the diagonal
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own, 1);
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 128);  // the one warpgroup that reads the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      mbar_expect_tx(bar_own, 2 * L::TILE);
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p) {
+        tma_load_4d(base + L::A + p * G_LOOP_PANEL, &tq, bar_own, 64 * p, h, q0, b);
+        tma_load_4d(base + L::B + p * G_LOOP_PANEL, &tdo, bar_own, 64 * p, h, q0, b);
+      }
+      for (int it = 0; it < nkt; ++it) {
+        const int s = it % G_STAGES, use = it / G_STAGES;
+        const uint32_t st = base + L::X + s * L::STAGE;
+        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+        mbar_expect_tx(full(s), 2 * L::TILE);
+#pragma unroll
+        for (int p = 0; p < PANELS; ++p) {
+          tma_load_4d(st + p * G_LOOP_PANEL, &tk, full(s), 64 * p, hk, it * W_ROWS, b);
+          tma_load_4d(st + L::TILE + p * G_LOOP_PANEL, &tv, full(s), 64 * p, hk, it * W_ROWS, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const int row_lo = q0 + 16 * warp + g, row_hi = row_lo + 8;
+    const size_t roff = static_cast<size_t>(bh) * S;
+    const float lse_lo = row_lo < S ? lse[roff + row_lo] : 0.f, lse_hi = row_hi < S ? lse[roff + row_hi] : 0.f;
+    const float del_lo = row_lo < S ? delta[roff + row_lo] : 0.f, del_hi = row_hi < S ? delta[roff + row_hi] : 0.f;
+    const uint32_t qb = base + L::A, ob = base + L::B, ks = base + L::X + c * L::STAGE, vs = ks + L::TILE;
+    float acc[DP / 2], sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+
+    mbar_wait(bar_own, 0);
+    for (int it = c; it < nkt; it += G_STAGES) {
+      mbar_wait(full(c), (it / G_STAGES) & 1);
+      wg_fence();
+      wgmma_scores<D, G_LOOP_PANEL>(sc, qb, ks);  // S = Q K^T
+      wgmma_scores<D, G_LOOP_PANEL>(dp, ob, vs);  // dP = dO V^T
+      wg_commit();
+      wg_wait0();
+      hold(sc);
+      hold(dp);
+      const bool diag = it == qt;
+      uint32_t da[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = it * W_ROWS + 8 * j + 2 * t4 + e;
+          float p_lo = __expf(sc[4 * j + e] * scale - lse_lo), p_hi = __expf(sc[4 * j + 2 + e] * scale - lse_hi);
+          if (diag) {
+            p_lo = kpos <= row_lo ? p_lo : 0.f;
+            p_hi = kpos <= row_hi ? p_hi : 0.f;
+          }
+          ds[e] = p_lo * (dp[4 * j + e] - del_lo);
+          ds[2 + e] = p_hi * (dp[4 * j + 2 + e] - del_hi);
+        }
+        da[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
+        da[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      wg_fence();
+      wgmma_grad<DP>(acc, da, ks);  // dQ += dS K
+      wg_commit();
+      wg_wait0();
+      hold(acc);
+      hold(da);
+      mbar_arrive(empty(c));
+    }
+    // warpgroup 1's stage is free once its loop is done (the producer loads
+    // nothing after that stage's last tile): its dQ goes there, fragment
+    // element i of thread t at float i * 128 + t
+    float* const red = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + L::X + L::STAGE);
+    if (c == 1) {
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) red[i * 128 + tid] = acc[i];
+    }
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] += red[i * 128 + tid];
+      const size_t qs = static_cast<size_t>(H) * D;
+      __nv_bfloat16* out = dq + static_cast<size_t>(b) * S * qs + static_cast<size_t>(h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (row_lo < S)
+          *reinterpret_cast<__nv_bfloat162*>(out + row_lo * qs + col) =
+              __floats2bfloat162_rn(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+        if (row_hi < S)
+          *reinterpret_cast<__nv_bfloat162*>(out + row_hi * qs + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+      }
+    }
+  }
+}
+
+// dK/dV at D 160 / 256: one CTA per (64-key tile, batch * KV head, split z
+// of the group's query heads), the first key tiles first.  The producer
+// streams, for each of the split's query heads in turn, the 64-query tiles
+// of Q and dO from the diagonal on; both consumers read every tile, both
+// compute S^T = K Q^T and P^T (masked on the diagonal tile and past S),
+// then warpgroup 0 adds dV += P^T dO and warpgroup 1 dP^T = V dO^T, dS^T =
+// P^T (dP^T - Delta) and dK += dS^T Q.  With one split the gradients are
+// stored in bf16 (dK times scale); with more, each CTA stores its float32
+// partials to part[c][z] ([2][splits][B, S, Hkv, D]: dV, then dK) for
+// flash_bwd_sum_splits.
+template <int D>
+__global__ void __launch_bounds__(G_THREADS, 1)
+    flash_bwd_dkdv_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                        const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, float* __restrict__ part, int S, int H, int Hkv, int splits,
+                        float scale) {
+  using L = WideSmem<D>;
+  constexpr int DP = L::DP, PANELS = DP / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_own = base + L::BAR;
+  const auto full = [&](int s) { return bar_own + 8u * (1 + s); };
+  const auto empty = [&](int s) { return bar_own + 8u * (1 + G_STAGES + s); };
+
+  const int kt = static_cast<int>(blockIdx.x), k0 = kt * W_ROWS;
+  const int bhk = blockIdx.y, b = bhk / Hkv, hk = bhk % Hkv, z = blockIdx.z;
+  const int per_split = H / Hkv / splits, h_first = hk * (H / Hkv) + z * per_split;
+  const int per_head = (S + W_ROWS - 1) / W_ROWS - kt;  // query tiles kt .. of each head
+  const int n_it = per_split * per_head;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own, 1);
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      mbar_expect_tx(bar_own, 2 * L::TILE);
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p) {
+        tma_load_4d(base + L::A + p * G_LOOP_PANEL, &tk, bar_own, 64 * p, hk, k0, b);
+        tma_load_4d(base + L::B + p * G_LOOP_PANEL, &tv, bar_own, 64 * p, hk, k0, b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % G_STAGES, use = it / G_STAGES;
+        const int h = h_first + it / per_head, q0 = (kt + it % per_head) * W_ROWS;
+        const uint32_t st = base + L::X + s * L::STAGE;
+        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+        mbar_expect_tx(full(s), 2 * L::TILE);
+#pragma unroll
+        for (int p = 0; p < PANELS; ++p) {
+          tma_load_4d(st + p * G_LOOP_PANEL, &tq, full(s), 64 * p, h, q0, b);
+          tma_load_4d(st + L::TILE + p * G_LOOP_PANEL, &tdo, full(s), 64 * p, h, q0, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;  // 0: dV, 1: dK
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const int key_lo = k0 + 16 * warp + g, key_hi = key_lo + 8;
+    const uint32_t kb = base + L::A, vb = base + L::B;
+    float* const rows_wg =
+        reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + L::ROWS) + c * 2 * 2 * W_ROWS;
+    float acc[DP / 2], st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+
+    mbar_wait(bar_own, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % G_STAGES, i = it % per_head;
+      const int h = h_first + it / per_head, q0 = (kt + i) * W_ROWS;
+      const uint32_t qs = base + L::X + s * L::STAGE, os = qs + L::TILE;
+      mbar_wait(full(s), (it / G_STAGES) & 1);
+      wg_fence();
+      wgmma_scores<D, G_LOOP_PANEL>(st, kb, qs);                // S^T = K Q^T
+      if (c == 1) wgmma_scores<D, G_LOOP_PANEL>(dpt, vb, os);  // dP^T = V dO^T
+      wg_commit();
+      float* const rows = rows_wg + (it & 1) * 2 * W_ROWS;
+      {
+        const int q = q0 + tid % W_ROWS;
+        const float* src = tid < W_ROWS ? lse : delta;
+        rows[tid] = q < S ? src[(static_cast<size_t>(b) * H + h) * S + q] : 0.f;
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+      wg_wait0();
+      hold(st);
+      hold(dpt);
+      const bool edge = i == 0 || q0 + W_ROWS > S;
+      uint32_t xa[4][4];  // P^T (warpgroup 0) or dS^T (warpgroup 1)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t4 + e, qpos = q0 + col;
+          const float l = rows[col], dl = rows[W_ROWS + col];
+          float p_lo = __expf(st[4 * j + e] * scale - l), p_hi = __expf(st[4 * j + 2 + e] * scale - l);
+          if (edge) {
+            p_lo = key_lo <= qpos && qpos < S ? p_lo : 0.f;
+            p_hi = key_hi <= qpos && qpos < S ? p_hi : 0.f;
+          }
+          x[e] = c == 0 ? p_lo : p_lo * (dpt[4 * j + e] - dl);
+          x[2 + e] = c == 0 ? p_hi : p_hi * (dpt[4 * j + 2 + e] - dl);
+        }
+        xa[j / 2][(j % 2) * 2] = pack_bf16(x[0], x[1]);
+        xa[j / 2][(j % 2) * 2 + 1] = pack_bf16(x[2], x[3]);
+      }
+      wg_fence();
+      wgmma_grad<DP>(acc, xa, c == 0 ? os : qs);  // dV += P^T dO, dK += dS^T Q
+      wg_commit();
+      wg_wait0();
+      hold(acc);
+      hold(xa);
+      mbar_arrive(empty(s));
+    }
+    const size_t ks = static_cast<size_t>(Hkv) * D;
+    const size_t koff = static_cast<size_t>(b) * S * ks + static_cast<size_t>(hk) * D;
+    if (splits == 1) {
+      __nv_bfloat16* const out = c == 0 ? dv : dk;
+      const float mul = c == 0 ? 1.f : scale;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (key_lo < S)
+          *reinterpret_cast<__nv_bfloat162*>(out + koff + key_lo * ks + col) =
+              __floats2bfloat162_rn(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+        if (key_hi < S)
+          *reinterpret_cast<__nv_bfloat162*>(out + koff + key_hi * ks + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+      }
+    } else {
+      const size_t n = static_cast<size_t>(gridDim.y / Hkv) * S * ks;  // B S Hkv D
+      float* const out = part + (static_cast<size_t>(c) * splits + z) * n + koff;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (key_lo < S) *reinterpret_cast<float2*>(out + key_lo * ks + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+        if (key_hi < S)
+          *reinterpret_cast<float2*>(out + key_hi * ks + col) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+// dV and dK from the splits' float32 partials (part [2][splits][n], dV
+// then dK): the sum over z in order 0 .. splits - 1, dK times scale, in
+// bf16; four elements a thread.
+__global__ void __launch_bounds__(256)
+    flash_bwd_sum_splits(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, long long n, int splits, float scale) {
+  const long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i >= 2 * n) return;
+  const int c = i >= n ? 1 : 0;
+  const long long e = i - c * n;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int z = 0; z < splits; ++z) {
+    const float4 x = *reinterpret_cast<const float4*>(part + (static_cast<long long>(c) * splits + z) * n + e);
+    sum.x += x.x;
+    sum.y += x.y;
+    sum.z += x.z;
+    sum.w += x.w;
+  }
+  const float mul = c == 0 ? 1.f : scale;
+  __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>((c == 0 ? dv : dk) + e);
+  out[0] = __floats2bfloat162_rn(sum.x * mul, sum.y * mul);
+  out[1] = __floats2bfloat162_rn(sum.z * mul, sum.w * mul);
+}
+
+template <int D>
+int launch_wide(int B, int S, int H, int Hkv, int splits, float scale, cudaStream_t stream, const void* q,
+                const void* k, const void* v, const void* o, const void* dout, const float* lse, float* delta,
+                void* dq, void* dk, void* dv, float* part) {
+  using bf = __nv_bfloat16;
+  CUtensorMap tq, tdo, tk, tv;  // 64-row boxes on both sides
+  int err = encode_bshd(&tq, q, B, S, H, D, W_ROWS);
+  if (err == 0) err = encode_bshd(&tdo, dout, B, S, H, D, W_ROWS);
+  if (err == 0) err = encode_bshd(&tk, k, B, S, Hkv, D, W_ROWS);
+  if (err == 0) err = encode_bshd(&tv, v, B, S, Hkv, D, W_ROWS);
+  if (err != 0) return err;
+  constexpr int smem = WideSmem<D>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_wide<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_bwd_dkdv_wide<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long rows = static_cast<long long>(B) * S * H;
+  flash_bwd_delta<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const bf*>(o), static_cast<const bf*>(dout), delta, S, H, D, rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (S + W_ROWS - 1) / W_ROWS;
+  flash_bwd_dq_wide<D><<<dim3(tiles, B * H), G_THREADS, smem, stream>>>(tq, tdo, tk, tv, lse, delta,
+                                                                          static_cast<bf*>(dq), S, H, Hkv, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkdv_wide<D><<<dim3(tiles, B * Hkv, splits), G_THREADS, smem, stream>>>(
+      tq, tdo, tk, tv, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), part, S, H, Hkv, splits, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const long long n = static_cast<long long>(B) * S * Hkv * D;
+  flash_bwd_sum_splits<<<static_cast<unsigned>((2 * n / 4 + 255) / 256), 256, 0, stream>>>(
+      part, static_cast<bf*>(dk), static_cast<bf*>(dv), n, splits, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_wgmma(int B, int S, int H, int Hkv, float scale, cudaStream_t stream, const void* q, const void* k,
                  const void* v, const void* o, const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -1048,31 +1466,42 @@ int dispatch(int B, int S, int H, int Hkv, int D, float scale, cudaStream_t s, c
 // dtype: 1 = float32, 2 = bfloat16 (q, k, v, o, dout, dq, dk, dv alike);
 // variant: 0 = bwd_simple (CUDA cores, any D up to 256), 1 = bwd_mma
 // (bfloat16, D % 16 == 0, D <= 128), 2 = bwd_wgmma (bfloat16, D in {64,
-// 128}); bwd_mma and bwd_wgmma need every operand 16-byte aligned.  Chosen
-// by the caller; one that does not take the input is refused.  lse float32
-// [B, H, S] from the forward; delta float32 [B, H, S] scratch.  Launches the
-// variant's kernels in order on ``stream`` (bwd_simple, bwd_mma: dQ, which
-// also writes Delta, then dK/dV; bwd_wgmma: Delta, dQ, dK/dV).  Returns a
-// cudaError_t: 0 when every launch was accepted.  Does not synchronise.
+// 128, 160, 256}); bwd_mma and bwd_wgmma need every operand 16-byte
+// aligned.  Chosen by the caller; one that does not take the input is
+// refused.  lse float32 [B, H, S] from the forward; delta float32 [B, H, S]
+// scratch.  splits: the dK/dV CTAs over which each KV group's query heads
+// are split (bwd_wgmma at D 160 / 256 only; it divides H / Hkv), with part
+// float32 [2, splits, B, S, Hkv, D] scratch when it is above 1, else 1 and
+// null.  Launches the variant's kernels in order on ``stream`` (bwd_simple,
+// bwd_mma: dQ, which also writes Delta, then dK/dV; bwd_wgmma: Delta, dQ,
+// dK/dV, and the sum of the splits).  Returns a cudaError_t: 0 when every
+// launch was accepted.  Does not synchronise.
 extern "C" int flash_attention_bwd_launch(int dtype, int variant, const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse, void* delta, void* dq,
-                                          void* dk, void* dv, int B, int S, int H, int Hkv, int D, float scale,
-                                          void* stream) {
+                                          void* dk, void* dv, void* part, int B, int S, int H, int Hkv, int D,
+                                          int splits, float scale, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(B) * H > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool wide = variant == 2 && (D == 160 || D == 256);
+  if (splits < 1 || (H / Hkv) % splits != 0 || (splits > 1 && (!wide || part == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (variant == 1 || variant == 2) {
-    if (dtype != 2 || D % 16 != 0 || D > 128 || (variant == 2 && D != 64 && D != 128))
+    if (dtype != 2 || D % 16 != 0 || (variant == 1 && D > 128) ||
+        (variant == 2 && D != 64 && D != 128 && !wide))
       return static_cast<int>(cudaErrorInvalidValue);
     for (const void* p : {q, k, v, o, dout, static_cast<const void*>(dq), static_cast<const void*>(dk),
-                          static_cast<const void*>(dv)})
+                          static_cast<const void*>(dv), static_cast<const void*>(part)})
       if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    float* pt = static_cast<float*>(part);
     if (variant == 2) {
       if (D == 64) return launch_wgmma<64>(B, S, H, Hkv, scale, s, q, k, v, o, dout, l, dl, dq, dk, dv);
-      return launch_wgmma<128>(B, S, H, Hkv, scale, s, q, k, v, o, dout, l, dl, dq, dk, dv);
+      if (D == 128) return launch_wgmma<128>(B, S, H, Hkv, scale, s, q, k, v, o, dout, l, dl, dq, dk, dv);
+      if (D == 160) return launch_wide<160>(B, S, H, Hkv, splits, scale, s, q, k, v, o, dout, l, dl, dq, dk, dv, pt);
+      return launch_wide<256>(B, S, H, Hkv, splits, scale, s, q, k, v, o, dout, l, dl, dq, dk, dv, pt);
     }
     if (D <= 64) return launch_mma<64>(B, S, H, Hkv, D, scale, s, q, k, v, o, dout, l, dl, dq, dk, dv);
     return launch_mma<128>(B, S, H, Hkv, D, scale, s, q, k, v, o, dout, l, dl, dq, dk, dv);

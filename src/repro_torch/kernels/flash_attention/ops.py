@@ -71,11 +71,29 @@ BWD_VARIANTS = ("bwd_simple", "bwd_mma", "bwd_wgmma")  # the backward launcher's
 def bwd_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernels that a launch takes: ``bwd_wgmma`` (TMA,
     warp-specialised wgmma: Delta, dQ, dK/dV kernels) for bfloat16 with D in
-    {64, 128}; ``bwd_mma`` (mma.sync) for other bfloat16 with D % 16 == 0 and
-    D <= 128; ``bwd_simple`` (CUDA cores) for float32 and the rest."""
-    if dtype == torch.bfloat16 and head_dim in (64, 128):
+    {64, 128} (128-row tiles) and {160, 256} (64-row tiles; D = 160 as three
+    64-column panels); ``bwd_mma`` (mma.sync) for other bfloat16 with D % 16
+    == 0 and D <= 128; ``bwd_simple`` (CUDA cores) for float32 and the rest."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "bwd_wgmma"
     return "bwd_mma" if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 128 else "bwd_simple"
+
+
+WIDE_HEAD_DIMS = (160, 256)  # bwd_wgmma's 64-row tiles, whose dK/dV CTAs may split a group's query heads
+
+
+def bwd_splits(b: int, s: int, h: int, hkv: int, d: int, sms: int) -> int:
+    """The CTAs over which bwd_wgmma at D 160 / 256 splits each KV group's
+    query heads for dK/dV: the least divisor of H / Hkv that gives at least
+    two CTAs per SM (one 64-key tile, batch row and KV head each; one CTA
+    fits an SM), else H / Hkv.  1 elsewhere.  recurrentgemma_2b's MQA
+    training shape (B = 2, S = 2048, 10 heads over 1) takes 5 (320 CTAs in
+    place of 64); pixtral_12b's (32 over 8) already has 512 and takes 1."""
+    rep = h // hkv
+    if d not in WIDE_HEAD_DIMS:
+        return 1
+    ctas = -(-s // 64) * b * hkv
+    return next((n for n in range(1, rep + 1) if rep % n == 0 and ctas * n >= 2 * sms), rep)
 
 
 @functools.cache
@@ -91,7 +109,7 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = load_library(BWD_SOURCE)
     fn = lib.flash_attention_bwd_launch
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -235,15 +253,20 @@ def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
         raise ValueError(f"flash_attention backward {kind} moves q, k, v, out, dout (through TMA in bwd_wgmma) and "
                          "dq, dk, dv in 16-byte pieces and needs them 16-byte aligned")
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    splits = 1
+    if kind == "bwd_wgmma":
+        splits = bwd_splits(b, s, h, k.shape[2], d, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    # the splits' float32 partial dV and dK, summed in order by the launcher's last kernel
+    part = torch.empty((2, splits, *k.shape), dtype=torch.float32, device=q.device) if splits > 1 else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd_library().flash_attention_bwd_launch(
         _DTYPE_CODE[q.dtype], BWD_VARIANTS.index(kind), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, k.shape[2], d,
-        1.0 / d**0.5, stream,
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if part is None else part.data_ptr(), b, s, h, k.shape[2], d, splits, 1.0 / d**0.5, stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel {kind} launch failed: cudaError {err} "
-                           f"(B={b}, S={s}, H={h}, Hkv={k.shape[2]}, D={d})")
+                           f"(B={b}, S={s}, H={h}, Hkv={k.shape[2]}, D={d}, splits={splits})")
     count_launch("flash_attention_bwd", kind, (b, s, h, k.shape[2], d))
     return dq, dk, dv
 

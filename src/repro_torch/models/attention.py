@@ -17,7 +17,10 @@ query), in plain PyTorch.
 Under a mesh (DTensor activations) the reference's hints place the head
 axis over "model": q always, k and v at their ``n_kv_heads`` when that
 divides the "model" axis and replicated otherwise, where the flash
-wrapper hands each rank the KV heads its query heads read.
+wrapper hands each rank the KV heads its query heads read.  Where "model"
+divides neither the heads nor the KV groups, the port gathers what it must
+split (decode's query heads, the windowed output's block positions) where
+XLA reshards the reference's arrays by itself.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 
 from ..kernels.flash_attention.ops import flash_attention_bshd
 from ..kernels.sharded import heads_local
-from .common import batch_axes, is_dtensor, shard_hint
+from .common import batch_axes, is_dtensor, shard_hint, whole_over
 
 NEG_INF = -2.0**30
 
@@ -94,8 +97,13 @@ def _windowed_attention(q, k, v, window: int):
     valid = mask[None] & ~(first_block & (kpos[None] < w))  # [nb, w, 2w]
     logits = torch.where(valid[None, :, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bnhqk,bnkhd->bnqhd", probs, v2).reshape(b, nb * w, h, d)
-    return out[:, :s]
+    out = torch.einsum("bnhqk,bnkhd->bnqhd", probs, v2)
+    # the query position in its block is gathered before it merges with the
+    # block index into the sequence (it holds "model" where the heads do
+    # not divide it, and a sharded inner dim would merge as a strided shard,
+    # whose flatten in the output projection DTensor cannot propagate)
+    out = shard_hint(out, batch_axes(), None, None, "model", None)
+    return out.reshape(b, nb * w, h, d)[:, :s]
 
 
 def cross_attention(q, k, v):
@@ -117,7 +125,9 @@ def decode_attention(q1, k_cache, v_cache, pos, *, local_window: int = 0):
     [B,Hkv,rep,1,S]."""
     b, s, hkv, d = k_cache.shape
     h = q1.shape[2]
-    qg = q1.reshape(b, 1, hkv, h // hkv, d)
+    # under a mesh whose "model" does not divide the KV groups, q (one
+    # token) is gathered over its heads; the cache keeps its placement
+    qg = whole_over(q1, 2, hkv).reshape(b, 1, hkv, h // hkv, d)
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qg, k_cache).float() / np.sqrt(d)
     kpos = torch.arange(s, device=q1.device)
     mask = kpos <= pos

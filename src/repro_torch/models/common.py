@@ -157,21 +157,65 @@ def like(local, ref, shape=None):
     return from_local_like(local, ref, shape=shape) if is_dtensor(ref) else local
 
 
+def whole_over(t, dim: int, parts: int):
+    """``t`` with ``dim`` gathered on every mesh dim that shards it and
+    does not divide ``parts``, the count that ``dim`` is about to be split
+    into (a plain tensor as it is): DTensor cannot unflatten a dim sharded
+    unevenly over its leading part, where XLA reshards the reference's
+    arrays by itself."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    mesh = t.device_mesh
+    placements = tuple(Replicate() if p.is_shard(dim) and parts % mesh.size(i) else p
+                       for i, p in enumerate(t.placements))
+    return t if placements == tuple(t.placements) else t.redistribute(mesh, placements)
+
+
 def split_heads(t, n_heads: int, head_dim: int):
     """[..., n_heads * head_dim] -> [..., n_heads, head_dim].  Under a mesh
     the feature dim may be sharded over a mesh dim that does not divide the
     heads (GQA's few KV heads, rwkv6_3b's 40): that mesh dim is gathered
-    first, where XLA reshards the reference's arrays by itself."""
-    if is_dtensor(t):
-        from torch.distributed.tensor import Replicate
+    first."""
+    return whole_over(t, t.dim() - 1, n_heads).reshape(*t.shape[:-1], n_heads, head_dim)
 
-        last = t.dim() - 1
-        mesh = t.device_mesh
-        placements = tuple(Replicate() if p.is_shard(last) and n_heads % mesh.size(i) else p
-                           for i, p in enumerate(t.placements))
-        if placements != tuple(t.placements):
-            t = t.redistribute(mesh, placements)
-    return t.reshape(*t.shape[:-1], n_heads, head_dim)
+
+def merge_heads(t):
+    """[..., n_heads, head_dim] -> [..., n_heads * head_dim], the inverse of
+    ``split_heads``.  Under a mesh with a dim that does not divide the heads
+    (recurrentgemma_2b's 10 over 16), the merged dim keeps its forward
+    placements on the way back too: the product after it returns its
+    gradient sharded over "model", which the merge's backward, a view into
+    heads, could not split, so that gradient is first laid out as the
+    merged dim was."""
+    out = t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+    if is_dtensor(t) and any(t.shape[-2] % n for n in t.device_mesh.shape):
+        out = out.redistribute(out.device_mesh, out.placements)
+    return out
+
+
+def write_position(cache, slot: int, value) -> None:
+    """``cache[:, slot] = value[:, 0]`` in place (cache [B, S, ...], value
+    [B, 1, ...]).  A DTensor cache may hold its sequence sharded ("model"
+    takes it where the batch takes "data"), where DTensor's indexing would
+    gather the sequence into a copy and write the copy: so each rank writes
+    its own shard, the one rank whose shard holds ``slot``, with ``value``
+    laid out as the cache but for the sequence."""
+    if not is_dtensor(cache):
+        cache[:, slot] = value[:, 0]
+        return
+    from torch.distributed.tensor import Replicate
+
+    mesh = cache.device_mesh
+    value = value.redistribute(mesh, [Replicate() if p.is_shard(1) else p for p in cache.placements])
+    lo, size = 0, cache.shape[1]  # this rank's [lo, lo + size) of the sequence: DTensor's chunks, mesh dim by mesh dim
+    for i, p in enumerate(cache.placements):
+        if p.is_shard(1):
+            chunk, k = -(-size // mesh.size(i)), mesh.get_local_rank(i)
+            lo, size = lo + min(k * chunk, size), max(0, min(chunk, size - k * chunk))
+    if lo <= slot < lo + size:
+        cache.to_local()[:, slot - lo] = value.to_local()[:, 0]
 
 
 def act_hint(x):

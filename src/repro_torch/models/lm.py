@@ -27,8 +27,8 @@ from torch.utils.checkpoint import checkpoint
 from . import rglru as rg
 from . import rwkv6 as rk
 from .attention import causal_attention, decode_attention
-from .common import (Registry, act_hint, batch_axes, cross_entropy_loss, dtype_of, layer_norm, rms_norm, rope,
-                     shard_hint, split_heads, sub, swiglu)
+from .common import (Registry, act_hint, batch_axes, cross_entropy_loss, dtype_of, layer_norm, merge_heads, rms_norm,
+                     rope, shard_hint, split_heads, sub, swiglu, write_position)
 from .moe import moe_ffn
 
 VOCAB_PAD = 512
@@ -227,7 +227,7 @@ def _apply_layer(kind: str, lp: Dict, x, cfg, positions, use_kernel: bool):
     if kind == "attn":
         q, k, v = _qkv(sub(lp, "attn"), _gathered(rms_norm(x, lp["ln1"], cfg.norm_eps)), cfg, positions, act_hint)
         o = causal_attention(q, k, v, local_window=cfg.local_window, use_kernel=use_kernel)
-        x = x + _scattered(o.reshape(x.shape[0], x.shape[1], -1) @ lp["attn/wo"])
+        x = x + _scattered(merge_heads(o) @ lp["attn/wo"])
         return x + _scattered(_ffn_apply(sub(lp, "ffn"), _gathered(rms_norm(x, lp["ln2"], cfg.norm_eps)), cfg))
     if kind == "rglru":
         r, _ = rg.rglru_block(sub(lp, "rec"), _gathered(rms_norm(x, lp["ln1"], cfg.norm_eps)))
@@ -378,27 +378,26 @@ def _quantize(t):
 
 
 def _decode_attn(lp: Dict, lc: Dict, x1, cfg, pos: int):
-    b, hd = x1.shape[0], cfg.resolved_head_dim
-    posb = torch.full((b, 1), pos, device=x1.device)
+    posb = torch.full((x1.shape[0], 1), pos, device=x1.device)
     q, k, v = _qkv(sub(lp, "attn"), rms_norm(x1, lp["ln1"], cfg.norm_eps), cfg, posb)
     sl = lc["k"].shape[1]
     slot = pos % sl if cfg.local_window else pos  # a ring of the last sl positions
     if cfg.kv_cache_dtype == "int8":
         for name, t in (("k", k), ("v", v)):
-            qt, sc = _quantize(t[:, 0])
-            lc[name][:, slot] = qt
-            lc[f"{name}_scale"][:, slot] = sc
+            qt, sc = _quantize(t)
+            write_position(lc[name], slot, qt)
+            write_position(lc[f"{name}_scale"], slot, sc)
         kf = lc["k"].to(k.dtype) * lc["k_scale"][..., None].to(k.dtype)
         vf = lc["v"].to(v.dtype) * lc["v_scale"][..., None].to(v.dtype)
     else:
-        lc["k"][:, slot] = k[:, 0]
-        lc["v"][:, slot] = v[:, 0]
+        write_position(lc["k"], slot, k)
+        write_position(lc["v"], slot, v)
         kf, vf = lc["k"], lc["v"]
     # once the ring is full every slot lies in the window; until then the
     # slots past pos are masked
     eff_pos = min(pos, sl - 1) if cfg.local_window else pos
     o = decode_attention(q, kf, vf, eff_pos)
-    x1 = x1 + o.reshape(b, 1, cfg.n_heads * hd) @ lp["attn/wo"]
+    x1 = x1 + merge_heads(o) @ lp["attn/wo"]
     return x1 + _ffn_apply(sub(lp, "ffn"), rms_norm(x1, lp["ln2"], cfg.norm_eps), cfg, decode=True)
 
 

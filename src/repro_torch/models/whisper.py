@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from .attention import causal_attention, cross_attention, decode_attention
 from .common import (Registry, cross_entropy_loss, dtype_of, gelu_mlp, layer_norm, shard_hint, sinusoidal_positions,
-                     split_heads, sub)
+                     split_heads, sub, write_position)
 
 
 def _attn_p(reg, prefix, cfg, dtype):
@@ -180,8 +180,8 @@ def whisper_decode_step(cfg, params: Dict, cache: Dict, token, pos: int):
         sp, cp = sub(lp, "self"), sub(lp, "cross")
         q, k, v = _proj_qkv(sp, layer_norm(x1, 1.0 + lp["ln1_g"], lp["ln1_b"]), cfg)
         sk, sv = cache["self_k"][i], cache["self_v"][i]
-        sk[:, pos] = k[:, 0]
-        sv[:, pos] = v[:, 0]
+        write_position(sk, pos, k)
+        write_position(sv, pos, v)
         x1 = x1 + _out(sp, decode_attention(q, sk, sv, pos))
         q2 = _heads(layer_norm(x1, 1.0 + lp["ln2_g"], lp["ln2_b"]) @ cp["wq"] + cp["bq"], cfg)
         x1 = _mlp(lp, x1 + _out(cp, cross_attention(q2, cache["cross_k"][i], cache["cross_v"][i])))

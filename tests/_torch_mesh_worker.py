@@ -81,9 +81,11 @@ def train_case(rank: int, world: int, store_file: str, out_dir: str, shape, arch
     first batch under a mesh of ``shape`` against one device's, per tensor
     (``scripts/mesh_grads.py``; for llama3_8b and rwkv6_3b also its bf16
     control and planted faults), and ``STEPS`` float32 steps under the mesh
-    against the same steps on one device (rank 0 runs those); then ``extra``: "restore" (the train CLI at ``--mesh-model 2``
-    saving at step 2, then resuming on a 2x1 mesh to step 4) or "gqa" (the
-    flash wrapper at H=8, Hkv=2 on a 1x4 mesh against the plain version)."""
+    against the same steps on one device (rank 0 runs those); then each
+    case of ``extra`` ("+"-separated): "restore" (the train CLI at
+    ``--mesh-model 2`` saving at step 2, then resuming on a 2x1 mesh to
+    step 4), "gqa" (the flash wrapper at H=8, Hkv=2 on a 1x4 mesh against
+    the plain version), "uneven" (``_uneven_case``)."""
     import torch
     import torch.distributed as dist
 
@@ -114,10 +116,13 @@ def train_case(rank: int, world: int, store_file: str, out_dir: str, shape, arch
                                             np.concatenate([want_p[k].ravel() for k in keys]))
                 rec["keys_equal"] = sorted(got_p) == sorted(want_p)
             out["archs"][arch] = rec
-        if extra == "restore":
+        cases = extra.split("+")
+        if "restore" in cases:
             out["restore"] = _restore_case(rank, out_dir)
-        if extra == "gqa":
+        if "gqa" in cases:
             out["gqa"] = _gqa_case()
+        if "uneven" in cases:
+            out["uneven"] = _uneven_case()
         with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -181,3 +186,43 @@ def _gqa_case():
         refused = str(e)
     return {"out": err(got, want), "grads": [err(a.grad, b.grad) for a, b in zip(dq, leaves)],
             "placements": [str(p) for p in got.placements], "local_shapes": seen, "refused": refused}
+
+
+def _uneven_case():
+    """On a 1x4 mesh, where "model" divides neither the KV groups nor the
+    heads, against one device in float32: a grouped decode step (8 query
+    heads over 2 KV heads, the cache filled with draws, the sequence over
+    "model") by its logits, relative L2; and the hybrid with 6 heads at
+    windows of SEQ / 2 (the banded form) and SEQ / 4 (the block-local
+    form), forward and backward, by its largest per-tensor gradient error
+    (``mesh_grads.check``)."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    import mesh_grads
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import distribute, tree_shardings
+
+    mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+    out = {}
+    hybrid = dataclasses.replace(get_config("recurrentgemma_2b").smoke(), n_heads=6)
+    for name, window in (("banded", SEQ // 2), ("windowed", SEQ // 4)):
+        cfg = dataclasses.replace(hybrid, local_window=window)
+        out[name] = mesh_grads.check(cfg, _batches(cfg, 1)[0], "cpu", [mesh], readings=False)["readings"]["1x4"]["sound"][:2]
+    cfg = dataclasses.replace(get_config("llama3_8b").smoke(), n_heads=8, n_kv_heads=2)
+    params = models.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(5)
+    cache = {k: torch.randn(v.shape, generator=gen) for k, v in models.init_cache(cfg, BATCH, SEQ, "cpu").items()}
+    token = torch.randint(0, cfg.vocab_size, (BATCH,), generator=gen)
+    want, _ = models.decode_step(cfg, params, {k: v.clone() for k, v in cache.items()}, token, SEQ // 2)
+    dparams = distribute(params, tree_shardings(params, models.param_axes(cfg), mesh), mesh, src_data_rank=None)
+    dcache = distribute(cache, tree_shardings(cache, models.decode_cache_axes(cfg), mesh), mesh, src_data_rank=None)
+    dtoken = distribute_tensor(token, mesh, [Replicate(), Replicate()], src_data_rank=None)
+    got, _ = models.decode_step(cfg, dparams, dcache, dtoken, SEQ // 2)
+    out["decode"] = _rel(got.full_tensor().numpy(), want.numpy())
+    out["cache_placements"] = [str(p) for p in dcache["blocks/L0/k"].placements]
+    return out

@@ -1307,6 +1307,9 @@ def _flash_grads(q, k, v, do, use_kernel):
     (2, 700, 4, 1, 128),    # ragged over many 64- and 128-row tiles
     (1, 100, 8, 2, 160),    # pixtral_12b's head dim
     (1, 150, 4, 1, 256),    # recurrentgemma_2b's head dim, one KV head
+    (2, 333, 4, 2, 160),    # D 160 ragged over many 64-row tiles, two batch rows
+    (2, 450, 10, 1, 256),   # recurrentgemma_2b's 10 heads over 1, ragged
+    (1, 256, 32, 8, 160),   # pixtral_12b's 32 heads over 8 (4:1)
 ])
 def test_flash_backward_matches_plain(card, dtype, b, s, h, hkv, d):
     from repro_torch.kernels.flash_attention.ops import bwd_variant
@@ -1322,7 +1325,8 @@ def test_flash_backward_matches_plain(card, dtype, b, s, h, hkv, d):
     assert kernels.LAUNCHES["flash_attention"] == fwd + 1
     kind = bwd_variant(dtype, d)
     bf16 = dtype == torch.bfloat16
-    assert kind == ("bwd_wgmma" if bf16 and d in (64, 128) else "bwd_mma" if bf16 and d <= 128 else "bwd_simple")
+    assert kind == ("bwd_wgmma" if bf16 and d in (64, 128, 160, 256) else "bwd_mma" if bf16 and d <= 128
+                    else "bwd_simple")
     assert kernels.VARIANT_LAUNCHES["flash_attention_bwd"] == {**bwd, kind: bwd[kind] + 1}
     for name, gt, want in zip("qkv", got, _flash_grads(q, k, v, do, False)):
         assert gt.dtype == dtype and gt.shape == want.shape
@@ -1371,15 +1375,15 @@ def test_flash_backward_is_deterministic_and_causal(card):
     assert not dk1[:, 200:].any() and not dv1[:, 200:].any()
 
 
-@pytest.mark.parametrize("kind", [None, "bwd_mma"])
-def test_flash_backward_refuses_misaligned_operands(card, kind):
-    """bwd_wgmma (the wrapper's pick at D=64: TMA) and bwd_mma move their
-    operands in 16-byte pieces: a dout that is not 16-byte aligned raises
-    rather than taking another variant."""
+@pytest.mark.parametrize("kind,d", [(None, 64), ("bwd_mma", 64), (None, 160), (None, 256)])
+def test_flash_backward_refuses_misaligned_operands(card, kind, d):
+    """bwd_wgmma (the wrapper's pick at D 64, 160 and 256: TMA) and bwd_mma
+    move their operands in 16-byte pieces: a dout that is not 16-byte
+    aligned raises rather than taking another variant."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
 
     g = torch.Generator(device=card).manual_seed(3)
-    q, k, v = (torch.randn(1, 40, 2, 64, generator=g, device=card).bfloat16() for _ in range(3))
+    q, k, v = (torch.randn(1, 40, 2, d, generator=g, device=card).bfloat16() for _ in range(3))
     out, lse = flash_ops._launch(q, k, v, with_lse=True)
     do = torch.randn(q.numel() + 1, generator=g, device=card).bfloat16()[1:].view(q.shape)
     before = dict(kernels.VARIANT_LAUNCHES["flash_attention_bwd"])
@@ -1388,6 +1392,30 @@ def test_flash_backward_refuses_misaligned_operands(card, kind):
     assert kernels.VARIANT_LAUNCHES["flash_attention_bwd"] == before
     flash_ops._launch_bwd(q, k, v, out, lse, do.clone(), kind=kind)
     assert kernels.VARIANT_LAUNCHES["flash_attention_bwd"][kind or "bwd_wgmma"] == before[kind or "bwd_wgmma"] + 1
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d", [(2, 333, 8, 2, 160), (1, 300, 10, 1, 256)])
+def test_flash_backward_wide_splits_match_plain(card, monkeypatch, b, s, h, hkv, d):
+    """bwd_wgmma at D 160 / 256 at every split of a group's query heads
+    over dK/dV CTAs (1: bf16 stores from the CTA; more: float32 partials
+    summed in order by the last kernel) matches the plain gradients, and
+    each split count is deterministic."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    g = torch.Generator(device=card).manual_seed(s + d)
+    q = torch.randn(b, s, h, d, generator=g, device=card).bfloat16()
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device=card).bfloat16() for _ in range(2))
+    do = torch.randn(b, s, h, d, generator=g, device=card).bfloat16()
+    out, lse = flash_ops._launch(q, k, v, with_lse=True)
+    want = _flash_grads(q, k, v, do, False)
+    for n in [x for x in range(1, h // hkv + 1) if (h // hkv) % x == 0]:
+        monkeypatch.setattr(flash_ops, "bwd_splits", lambda *args, n=n: n)
+        got = flash_ops._launch_bwd(q, k, v, out, lse, do)
+        again = flash_ops._launch_bwd(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), n
+        for name, gt, w in zip("qkv", got, want):
+            assert _l2_rel(gt, w, do.double().norm().item()) <= BWD_TOL[torch.bfloat16], (n, name)
 
 
 def _scan_grads(r, k, v, logw, u, do, use_kernel, state=None):

@@ -9,7 +9,9 @@ seeded inputs, lam, the residual norm and the new vector within 1e-5 in
 float32.  In subprocesses (a fake process group must not outlive its
 test): the cost counter on hand-computed cases and ``run_cell`` on a smoke
 granite at sequence 64 on fake 8-rank meshes (4,2) and (2,2,2), the
-reference's ``TestDryRunSmoke``; ``report.emit`` on their records.  The
+reference's ``TestDryRunSmoke``; ``report.emit`` on their records; and
+the three kinds of cell that failed where "model" divides neither the KV
+groups nor the heads (``UNEVEN``), each of which must lower.  The
 reference's ``TestHloCosts`` parses HLO text and has no counterpart.
 """
 import json
@@ -163,19 +165,49 @@ CELL = textwrap.dedent("""\
 """)
 
 
+# The three kinds of cell that once failed where "model" divides neither
+# the KV groups nor the heads, at smoke widths on a fake (2, 4) mesh: a
+# grouped decode of 8 query heads over 2 KV heads, and a hybrid of 6 heads
+# trained at S = 2W (the banded form) and prefilled at S = 4W (the
+# block-local form).  Each cell's status, or its error.
+UNEVEN = textwrap.dedent("""\
+    import dataclasses, json, sys
+    sys.path.insert(0, sys.argv[1])
+    import repro_torch.configs.base as base
+    base.SHAPES.update(train_4k=dict(seq_len=32, global_batch=8, kind="train"),
+                       prefill_32k=dict(seq_len=64, global_batch=8, kind="prefill"),
+                       decode_32k=dict(seq_len=64, global_batch=8, kind="decode"))
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    mesh_mod.make_production_mesh = lambda multi_pod=False: mesh_mod.fake_mesh((2, 4), ("data", "model"))
+    base.register(dataclasses.replace(base.get_config("llama3_8b").smoke(), name="gqa_uneven", n_heads=8,
+                                      n_kv_heads=2))
+    base.register(dataclasses.replace(base.get_config("recurrentgemma_2b").smoke(), name="hybrid_uneven",
+                                      n_heads=6))
+    out = {}
+    for arch, shape in (("gqa_uneven", "decode_32k"), ("hybrid_uneven", "train_4k"), ("hybrid_uneven", "prefill_32k")):
+        try:
+            out[shape] = dryrun.run_cell(arch, shape, False, sys.argv[2], force=True)["status"]
+        except Exception as e:  # the cell's failure is the reading
+            out[shape] = f"{type(e).__name__}: {e}"[:400]
+    print("UNEVEN " + json.dumps(out))
+""")
+
+
 @pytest.fixture(scope="module")
 def fake_runs(tmp_path_factory):
-    """The counter cases and the two smoke cells, each in a subprocess of
-    its own, run side by side: (counts, {mesh name: record}, records dir)."""
+    """The counter cases, the two smoke cells and the uneven cells, each in
+    a subprocess of its own, run side by side: ({"counts": ..., mesh name:
+    record, "uneven": {shape: status}}, records dir)."""
     out_dir = tmp_path_factory.mktemp("dryrun")
     env = dict(os.environ, OMP_NUM_THREADS="1")
     run = lambda code, *args: subprocess.Popen([sys.executable, "-c", code, str(REPO / "src"), *map(str, args)],
                                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-    procs = {"counts": run(COUNTS), "pod256": run(CELL, out_dir, 0), "pod512": run(CELL, out_dir, 1)}
+    procs = {"counts": run(COUNTS), "pod256": run(CELL, out_dir, 0), "pod512": run(CELL, out_dir, 1),
+             "uneven": run(UNEVEN, tmp_path_factory.mktemp("uneven"))}
     results = {}
     for name, proc in procs.items():
         stdout, stderr = proc.communicate(timeout=600)
-        tag = "COUNTS " if name == "counts" else "CELL "
+        tag = {"counts": "COUNTS ", "uneven": "UNEVEN "}.get(name, "CELL ")
         line = [ln for ln in stdout.splitlines() if ln.startswith(tag)]
         assert proc.returncode == 0 and line, stderr[-3000:]
         results[name] = json.loads(line[-1][len(tag):])
@@ -206,6 +238,14 @@ def test_small_mesh_cell(fake_runs, mesh):
     assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
     # per-rank flops are the local shards': about an eighth of one device's
     assert rec["flops_per_chip"] < rec["model_flops_global"]
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "train_4k", "prefill_32k"])
+def test_cell_lowers_where_model_divides_no_heads(fake_runs, shape):
+    """The grouped decode with 2 KV heads under a "model" of 4, and the
+    banded (train) and block-local (prefill) attention of 6 heads under it,
+    forward and backward: each cell lowers."""
+    assert fake_runs[0]["uneven"][shape] == "ok"
 
 
 def test_report_emits_both_meshes(fake_runs):

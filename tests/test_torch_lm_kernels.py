@@ -92,15 +92,34 @@ def test_flash_dispatch(dtype, d, want):
     (torch.bfloat16, 64, "bwd_wgmma"),
     (torch.bfloat16, 16, "bwd_mma"),
     (torch.bfloat16, 96, "bwd_mma"),
-    (torch.bfloat16, 160, "bwd_simple"),
-    (torch.bfloat16, 256, "bwd_simple"),
+    (torch.bfloat16, 160, "bwd_wgmma"),   # pixtral_12b's heads
+    (torch.bfloat16, 256, "bwd_wgmma"),   # recurrentgemma_2b's heads
+    (torch.bfloat16, 192, "bwd_simple"),
     (torch.float32, 128, "bwd_simple"),
     (torch.float32, 64, "bwd_simple"),
+    (torch.float32, 256, "bwd_simple"),
 ])
 def test_flash_bwd_dispatch(dtype, d, want):
     """The backward launcher picks its kernels from (dtype, D) before any
     launch."""
     assert flash_bwd_variant(dtype, d) == want
+
+
+@pytest.mark.parametrize("shape,sms,want", [
+    ((2, 2048, 10, 1, 256), 132, 5),   # recurrentgemma_2b's training shape: 64 -> 320 dK/dV CTAs
+    ((2, 2048, 32, 8, 160), 132, 1),   # pixtral_12b's: 512 CTAs already
+    ((2, 2048, 32, 8, 128), 132, 1),   # D 128's dK/dV kernel takes no split
+    ((1, 150, 4, 1, 256), 132, 4),     # too few CTAs at any split: the whole group
+    ((2, 2048, 10, 1, 256), 16, 1),    # a small card: 64 CTAs are enough
+])
+def test_flash_bwd_splits(shape, sms, want):
+    """bwd_wgmma at D 160 / 256 splits a KV group's query heads over dK/dV
+    CTAs by a divisor of H / Hkv, the least that gives two CTAs per SM."""
+    from repro_torch.kernels.flash_attention.ops import bwd_splits
+
+    b, s, h, hkv, d = shape
+    n = bwd_splits(b, s, h, hkv, d, sms)
+    assert n == want and (h // hkv) % n == 0
 
 
 def test_kernel_library_is_named_by_its_headers_too(tmp_path):

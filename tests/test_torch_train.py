@@ -25,6 +25,15 @@ what they read:
   1e-2 (read 1.0e-4, 1.6e-3 and 1.9e-3): the same differences, and a
   gradient element on an int8 rounding boundary may round to the
   neighbouring step of the grid.
+* recurrentgemma_2b (its banded attention: 24 tokens over a window of
+  16): metrics 1e-4, parameters 5e-4, changes 2e-3 (read 4.3e-7, 8.0e-5
+  and 5.6e-4).  The RG-LRU's doubling scan sums in another order than the
+  reference's associative scan (ROADMAP Queue 3: 1e-4), and AdamW's
+  per-element division carries the difference into the changes, as for
+  rwkv6_3b.
+* pixtral_12b (8 patch embeddings before the tokens): metrics and
+  parameters 1e-5, changes 1e-3 (read 2.7e-7, 3.5e-6 and 2.0e-4, the last
+  in wq and w_up, whose near-zero gradient elements AdamW scales up).
 """
 import json
 import os
@@ -232,12 +241,23 @@ STEP_CASES = {  # (arch, n_micro, compress, metrics, parameter and update limits
     "rwkv6_3b": ("rwkv6_3b", 1, None, 1e-4, 1e-3, 2e-3),
     "llama3_8b-micro2": ("llama3_8b", 2, None, 1e-5, 1e-5, 1e-4),
     "rwkv6_3b-int8": ("rwkv6_3b", 1, "int8", 1e-3, 1e-2, 1e-2),
+    "recurrentgemma_2b": ("recurrentgemma_2b", 1, None, 1e-4, 5e-4, 2e-3),
+    "pixtral_12b": ("pixtral_12b", 1, None, 1e-5, 1e-5, 1e-3),
 }
 
 
 def _batches(cfg, n, seed=11):
+    """``n`` batches of 4 x 24 tokens, with a VLM's patch embeddings drawn
+    from ``seed`` beside them."""
     d = JSyntheticLM(cfg.vocab_size, 24, 4, seed=seed)
-    return [{k: np.asarray(v) for k, v in next(d).items()} for _ in range(n)]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = {k: np.asarray(v) for k, v in next(d).items()}
+        if cfg.family == "vlm":
+            b["patch_embeds"] = rng.standard_normal((4, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
 
 
 @pytest.fixture(scope="module", params=list(STEP_CASES))
@@ -262,7 +282,7 @@ def three_steps(request):
     for b in _batches(jc, 3):
         jp, js, m = jstep(jp, js, {k: jnp.asarray(v) for k, v in b.items()})
         jm.append({k: float(v) for k, v in m.items()})
-        tp, ts, m = tstep(tp, ts, {k: t(v).long() for k, v in b.items()})
+        tp, ts, m = tstep(tp, ts, {k: t(v) if v.dtype == np.float32 else t(v).long() for k, v in b.items()})
         tm.append({k: float(v) for k, v in m.items()})
     return (request.param, p0, (jm, {k: np.asarray(v) for k, v in jp.items()}, js),
             (tm, {k: v.numpy() for k, v in tp.items()}, ts))

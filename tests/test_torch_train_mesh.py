@@ -9,7 +9,9 @@ family (dense, MoE, RWKV6, the RG-LRU hybrid, the VLM, Whisper) for three
 float32 steps, then runs the train CLI at ``--mesh-model 2``, saves, and
 resumes on a 2x1 mesh (FSDP over "data"); a world of 4 trains llama3_8b
 and rwkv6_3b on a 2x2 mesh and holds the flash wrapper's grouped-KV rule
-(8 query heads over "model", 2 KV heads replicated) on a 1x4 mesh.
+(8 query heads over "model", 2 KV heads replicated) on a 1x4 mesh, and on
+that mesh a grouped decode step (2 KV heads under a "model" of 4) and a
+hybrid's banded and block-local attention (6 heads) against one device.
 The first batch's float32 gradients are held per tensor to one device's
 at 1e-5 (relative; ``scripts/mesh_grads.py``), and for llama3_8b and
 rwkv6_3b the bf16 control and the planted faults in the kernel wrappers'
@@ -79,7 +81,8 @@ def worlds(tmp_path_factory):
     """The world of 2 (1x2: every family, then the CLI's save and restore)
     and the world of 4 (2x2: llama3_8b and rwkv6_3b, then the GQA case),
     run side by side."""
-    return run_worlds([(2, (1, 2), FAMILIES, "restore"), (4, (2, 2), WIDE, "gqa")], str(tmp_path_factory.mktemp("mesh")))
+    return run_worlds([(2, (1, 2), FAMILIES, "restore"), (4, (2, 2), WIDE, "gqa+uneven")],
+                      str(tmp_path_factory.mktemp("mesh")))
 
 
 @pytest.fixture(scope="module")
@@ -160,6 +163,18 @@ def test_gqa_with_replicated_kv_heads(world4):
         assert g["placements"] == ["R", "S(2)"]
         assert g["local_shapes"] == [[[2, 16, 2, 16], [2, 16, 1, 16]]]
         assert g["refused"] and "mesh dim 1 (model)" in g["refused"]
+
+
+@pytest.mark.parametrize("case", ["decode", "banded", "windowed"])
+def test_uneven_heads_match_one_device(world4, case):
+    """On a 1x4 mesh, "model" dividing neither 2 KV groups of 8 query heads
+    (a grouped decode step, its cache sharded over the sequence) nor a
+    hybrid's 6 heads (banded and block-local attention, forward and
+    backward): the same as one device at 1e-5 in float32."""
+    for rank in world4:
+        got = rank["uneven"][case]
+        assert (got if case == "decode" else got[0]) <= LIMIT, (case, got)
+        assert rank["uneven"]["cache_placements"] == ["R", "S(2)"]  # [layers, B, S, Hkv, D]: the sequence over "model"
 
 
 def test_rwkv6_spread_is_rounding_on_one_device(monkeypatch):
