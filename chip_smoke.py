@@ -85,20 +85,25 @@ Phases (any failure exits non-zero):
   15. observables: Sz, SzSz and S+S- on the 3x2 case against ED (1e-8); on
      the 8x4 auto ground state the sum of <Sz_i> against the state's total
      charge (1e-8) and correlation_profile("Sz", "Sz", ref=0) timed;
-  16. the serving path, DMRG-as-a-service: a J1-J2 ladder scan of 16 rungs
-     (32 sites, J1=1, J2 over 0.30:0.65 in 8 steps, max_bond 128: bonds 8
+  16. the serving path, DMRG-as-a-service: a J1-J2 ladder scan of 8 rungs
+     (16 sites, J1=1, J2 over 0.30:0.65 in 8 steps, max_bond 128: bonds 8
      ... 128, two sweeps each, davidson_iters=6, f64), one slot of 8 through
      DMRGService(max_batch=8) warmed on the scan's own problems at slot size
      8: problems/s, solve seconds, seconds per sweep and per stage, block
      GEMM launches by variant, captures during and after warmup, peak
      memory; asserts launches > 0, zero captures after warmup, every
      recovery counter zero, and |dE| < 1e-10 against run_dmrg(algo="batched",
-     jit_matvec=True) for the first and last J2; on the middle bond's
-     stacked matvec, the largest folded bucket launch against its plain
-     version (1e-12 relative) and against 8 per-problem launches (1e-13),
-     timed beside their total and bmm + index_add_; then the README's CLI
-     quickstart with --check as a subprocess;
-  17. distributed DMRG: the 8x4 J1-J2 cylinder (J2=0.5, f64) through
+     jit_matvec=True) for the first and last J2 (untimed: the entry points
+     run beside them, ENTRY_POINTS); on the middle bond's stacked matvec,
+     the largest folded bucket launch against its plain version (1e-12
+     relative) and against 8 per-problem launches (1e-13), timed beside
+     their total and bmm + index_add_; then the entry points' results: the
+     README's CLI quickstart with --check, the serve CLI with --warmup and
+     --plan-store and a fresh CLI process on that store with --check
+     reporting 0 plan builds, and examples/dmrg_groundstate_torch.py on the
+     open 3x2 Hubbard patch (csr, --check-ed: exit code 0, its ED line
+     within 1e-8);
+  17. distributed DMRG: the 4x4 J1-J2 cylinder (J2=0.5, f64) through
      run_dmrg(spmd=True) under torchrun (scripts/spmd_dmrg.py), ranks
      sharing the card: one rank on NCCL, then 1x2 and 2x2 meshes on gloo
      (NCCL refuses two ranks on one card), SPMD_BONDS one sweep each,
@@ -114,9 +119,8 @@ Phases (any failure exits non-zero):
      on an empty store (scripts/plan_store_run.py), then in a fresh process
      on the primed store: 0 plan builds, every capture in the warmup before
      the first sweep (as many as the cold run's sweeps took), none in the
-     sweeps, energies within 1e-10 of the cold run's; then the serve CLI
-     with --warmup and --plan-store, and a fresh CLI process on that store
-     with --check reporting 0 plan builds;
+     sweeps, energies within 1e-10 of the cold run's (the serve CLI on a
+     plan store ran with the entry points of phase 16);
   19. the other LM families at full published width (random bf16 weights;
      depth cut only where one card forces it, FAMILIES): codeqwen15_7b,
      granite_3_2b, qwen15_110b, qwen2_moe_a27b, moonshot_v1_16b_a3b,
@@ -176,7 +180,23 @@ Phases (any failure exits non-zero):
      m=4096 on a 1x1 mesh in float32 and bf16, timed beside the flops
      launch/costs.py counts; one launch of each training kernel at a 1x2
      rank's local heads timed beside all heads;
-  22. summary lines, then {"ok": true, "device": {...}} as the last line.
+  22. the paper's electron system (triangular Hubbard, t=1, U=8.5, d=4, two
+     U(1) charges): the open 3x2 patch through run_dmrg(algo="batched",
+     jit_matvec=True) against ED (1e-8; through the entry point on csr in
+     phase 16); the width-6 cylinder (k=26) at ELECTRON_LX columns through
+     csr, batched with graphs and auto with graphs at ELECTRON_BONDS: per
+     sweep its seconds, SVD and environment seconds, the host planner's
+     work-list milliseconds, contractions by backend and buckets, graph
+     captures, replays, evictions and pool bytes, block GEMM launches by
+     variant (at least one per csr contraction and one per bucket) and peak
+     memory; the csr operands' packed bytes, the SVD's host syncs; energies
+     non-increasing (1e-10), no recovery, the last energies of the three
+     within 1e-8; then the block GEMM on the csr run's middle-bond matvec
+     at the top bond against its plain version (1e-12 relative), timed
+     beside bmm + index_add_, with its bytes bound, and on the batched run's
+     middle-bond matvec its largest bucket and a bucket of extent 1 against
+     their plain version (1e-12 relative), timed beside bmm + index_add_;
+  23. summary lines, then {"ok": true, "device": {...}} as the last line.
 Needs a CUDA card; exits non-zero without one, printing no result.
 """
 from __future__ import annotations
@@ -225,21 +245,26 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # float32 by both, so bf16 adds only the output's own rounding.
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
 # The served scan of phase 16: the J1-J2 ladder (Ly=2 strip of the paper's
-# spins model) at 16 rungs, the J2 values of one slot, the largest bond
-# (cut from 256 to 128 to keep the script near half its time limit).
-SERVE_MODEL, SERVE_SITES, SERVE_BOND = "j1j2_ladder", 32, 128
+# spins model), the J2 values of one slot, the largest bond (cut from 256 to
+# 128 to keep the script near half its time limit) and the length, cut from
+# 16 rungs to 8 when phase 22 came (the shortest ladder whose middle bond
+# holds 128): at 16 rungs and m=128 the phase took ~260 s on an H100, 700 W.
+SERVE_MODEL, SERVE_SITES, SERVE_BOND = "j1j2_ladder", 16, 128
 SERVE_J2 = tuple(float(j) for j in np.linspace(0.30, 0.65, 8))
 # The README's CLI quickstart, run with --check on the card.
 SERVE_CLI = ["--model", "heisenberg", "--n-sites", "8", "--max-bond", "16", "--sweep", "J=0.8:1.2:4",
              "--sweep", "h=0.2:0.4:2", "--batch", "4", "--check"]
-# Phase 17: the spmd worlds (ranks, backend, mesh) on the one card, and the
-# bond schedule, cut from BONDS so that the phase takes about two minutes:
-# the eager matvec with two collectives per bucket took 24 / 62 / 119 s at
-# worlds 1 / 2 / 4 over (16, 64, 128) on an H100 (scripts/spmd_dmrg.py).
+# Phase 17: the spmd worlds (ranks, backend, mesh) on the one card, the bond
+# schedule, cut from BONDS so that the phase takes about two minutes (the
+# eager matvec with two collectives per bucket took 24 / 62 / 119 s at
+# worlds 1 / 2 / 4 over (16, 64, 128) on an H100; scripts/spmd_dmrg.py), and
+# the cylinder, cut in length from phase 4's 8x4 to 4x4 when phase 22 came
+# (the phase took 217 s at 8x4; H100, 700 W).
 SPMD_WORLDS = ((1, "nccl", "1x1"), (2, "gloo", "1x2"), (4, "gloo", "2x2"))
 SPMD_BONDS = (16, 64)
-# Phase 18: the cold and primed runs' bonds, and the serve CLI on a store
-# primed by --warmup (the same group: model, sites, bond, h=0).
+SPMD_LX, SPMD_LY = 4, 4
+# Phase 18: the cold and primed runs' bonds; the serve CLI on a store primed
+# by --warmup (the same group: model, sites, bond, h=0), one of ENTRY_POINTS.
 STORE_BONDS = (128, 256)
 STORE_WARMUP = "heisenberg,m=8,n=6"
 STORE_CLI = ["--model", "heisenberg", "--n-sites", "6", "--max-bond", "8", "--sweep", "J=0.9:1.1:2",
@@ -360,6 +385,39 @@ MESH_GRAD_ARCHS = {"llama3_8b": "1x2", "rwkv6_3b": "1x2,2x1"}
 # card (a 1x1 mesh), spins (d=2, k=30) at m=4096: each of its three
 # m^2 k d^2 intermediates takes 8 GB in float32
 MESH_DMRG = dict(m=4096, d=2, k=30)
+# Phase 22: the paper's electron system (Sec. V), the triangular Hubbard
+# cylinder (t=1, U=8.5, d=4, charges (N, 2Sz)) at width 6, where its MPO
+# compresses to the paper's k=26, from neel_states (half filling, Sz=0),
+# f64, davidson_iters=2 and one sweep per bond as phase 4.  Only the length
+# and the bond are cut: 3 columns (18 sites, the shortest cylinder whose
+# middle bonds reach k=26) and bonds to 256, so that the three paths fit
+# about two and a half minutes: at bonds (16, 128, 512) csr, batched and
+# auto took 53.3, 70.9 and 60.0 s, at 4 columns and bonds (64, 256, 1024)
+# 91, 112 and 125 s (scripts/electron_sweeps.py; NVIDIA H100 80GB HBM3, 700
+# W).  A sweep grows the bond at most sixteenfold (d^2): from the product
+# state to 12, then to 128, then to the top bond.
+ELECTRON_LX, ELECTRON_LY = 3, 6
+ELECTRON_BONDS = (16, 128, 256)
+# the paths, in order (scripts/electron_sweeps.py PATHS: csr as phase 4,
+# batched and auto with graphs as phases 10 and 11)
+ELECTRON_PATHS = ("csr", "batched", "auto")
+# The exact check: the open 3x2 patch (Ly=2 has no wrap; 4096 states) through
+# the entry point on csr (one of ENTRY_POINTS), and in process through the
+# planned pipeline, each at the entry point's schedule (bonds 8 ... 64, two
+# sweeps each, davidson_iters=4: 1.7e-9 from ED on the CPU).
+ELECTRON_CLI = ["examples/dmrg_groundstate_torch.py", "--system", "electrons", "--lx", "3", "--ly", "2",
+                "--max-bond", "64", "--algo", "csr", "--check-ed"]
+# The entry points run as subprocesses on the card, each a chain of commands
+# run one after another, the chains side by side and beside untimed work
+# only (phase 16's single runs): the README's serve CLI quickstart, the
+# serve CLI's --warmup on a plan store and then a fresh CLI process on it
+# (phase 18), and the DMRG entry point on the 3x2 Hubbard patch (phase 22).
+ENTRY_POINTS = {
+    "serve": [["-m", "repro_torch.serve", *SERVE_CLI]],
+    "plan_store": [["-m", "repro_torch.serve", "--warmup", STORE_WARMUP, "--batch", "2", "--plan-store", "{store}"],
+                   ["-m", "repro_torch.serve", *STORE_CLI, "--plan-store", "{store}"]],
+    "electrons": [ELECTRON_CLI],
+}
 
 
 def log(*args):
@@ -1082,14 +1140,9 @@ def planned_pipeline(dev, record, space, terms, mpo):
     from repro_torch import kernels
     from repro_torch.core import run_dmrg
     from repro_torch.core.ed import ground_energy
-    from repro_torch.core.env import get_contractor, left_edge, right_edge
+    from repro_torch.core.env import get_contractor
     from repro_torch.core.models import heisenberg_j1j2_terms
     from repro_torch.core.siteops import spin_half_space
-    from repro_torch.dist.batch import bucket_operands, matricize_lhs, matricize_rhs, pad_block_sparse
-    from repro_torch.dist.engine import MATVEC_AXES
-    from repro_torch.kernels.block_gemm.ops import block_sparse_matmul
-    from repro_torch.kernels.block_gemm.ref import block_sparse_matmul_ref
-    from repro_torch.kernels.block_gemm.work import variant
     from repro_torch.tensor.blocksparse import BlockSparseTensor
 
     rec = {}
@@ -1140,17 +1193,8 @@ def planned_pipeline(dev, record, space, terms, mpo):
 
     # graph replays against the eager matvec on the middle bond, with a
     # fresh engine: the first call captures, every call replays
-    T, n = res.mps.tensors, len(mpo)
-    j = n // 2 - 1
     engine = get_contractor("batched", dev)
-    A = left_edge(T[0], mpo[0])
-    for i in range(j):
-        A = engine.env_update_left(A, T[i], mpo[i])
-    B = right_edge(T[n - 1], mpo[n - 1])
-    for i in range(n - 2, j, -1):
-        B = engine.env_update_right(B, T[i + 1], mpo[i + 1])
-    A, Wj, Wj1, B = (pad_block_sparse(t) for t in (A, mpo[j], mpo[j + 1], B))
-    x1 = pad_block_sparse(engine(T[j], T[j + 1], ((2,), (0,))))
+    j, (A, Wj, Wj1, B, x1) = padded_middle_bond(engine, res, mpo)
     g = torch.Generator(device=dev).manual_seed(7)
     x2 = BlockSparseTensor(x1.indices, {k: torch.randn(b.shape, generator=g, dtype=b.dtype, device=dev)
                                         for k, b in x1.blocks.items()}, x1.charge)
@@ -1169,23 +1213,62 @@ def planned_pipeline(dev, record, space, terms, mpo):
     rec["replay_vs_eager"] = dict(bond=j, rel_errs=errs, x1_vs_x2=apart, graphs=after)
 
     # the block GEMM on the largest bucket of that matvec
-    best, t = None, x1
+    rec["largest_bucket"] = bucket_row(dev, max(matvec_buckets(dev, engine, A, Wj, Wj1, B, x1), key=lambda c: c[0]),
+                                       "largest bucket")
+    return rec
+
+
+def padded_middle_bond(engine, res, mpo):
+    """The middle bond j of a run's state and its two-site matvec's padded
+    operands (A, W[j], W[j+1], B and the two-site tensor), as the planned
+    pipeline pads them, the environments built through ``engine``."""
+    from repro_torch.core.env import left_edge, right_edge
+    from repro_torch.dist.batch import pad_block_sparse
+
+    T, n = res.mps.tensors, len(mpo)
+    j = n // 2 - 1
+    A = left_edge(T[0], mpo[0])
+    for i in range(j):
+        A = engine.env_update_left(A, T[i], mpo[i])
+    B = right_edge(T[n - 1], mpo[n - 1])
+    for i in range(n - 2, j, -1):
+        B = engine.env_update_right(B, T[i + 1], mpo[i + 1])
+    return j, tuple(pad_block_sparse(t) for t in (A, mpo[j], mpo[j + 1], B, engine(T[j], T[j + 1], ((2,), (0,)))))
+
+
+def matvec_buckets(dev, engine, A, Wj, Wj1, B, x) -> list:
+    """Every shape bucket of the two-site matvec's four steps through a
+    batched ``engine``: (flops, step, bucket, device out-slot table, plan,
+    a, b) each."""
+    from repro_torch.dist.engine import MATVEC_AXES
+
+    out, t = [], x
     for i, axes in enumerate(MATVEC_AXES):
         a, b = (A, t) if i == 0 else (t, (Wj, Wj1, B)[i - 1])
         plan = engine.cache.get(a, b, axes)
         for bucket, oi in zip(plan.batched.buckets, plan.batched.device_tables(dev)):
-            flops = 2.0 * len(bucket.oi) * bucket.m * bucket.k * bucket.n
-            if best is None or flops > best[0]:
-                best = (flops, i, bucket, oi, plan, a, b)
+            out.append((2.0 * len(bucket.oi) * bucket.m * bucket.k * bucket.n, i, bucket, oi, plan, a, b))
         t = engine(a, b, axes)
-    flops, step, bucket, oi, plan, a, b = best
+    return out
+
+
+def bucket_row(dev, cand, what: str) -> dict:
+    """The block GEMM on one bucket of ``matvec_buckets`` against its plain
+    version (1e-12 relative), timed beside it and bmm + index_add_, with its
+    bound."""
+    from repro_torch.dist.batch import bucket_operands, matricize_lhs, matricize_rhs
+    from repro_torch.kernels.block_gemm.ops import block_sparse_matmul
+    from repro_torch.kernels.block_gemm.ref import block_sparse_matmul_ref
+    from repro_torch.kernels.block_gemm.work import variant
+
+    flops, step, bucket, oi, plan, a, b = cand
     lhs, rhs = bucket_operands(bucket, matricize_lhs(a, plan.keep_a, plan.ax_a), matricize_rhs(b, plan.keep_b, plan.ax_b))
     O = len(bucket.out_keys)
     got = block_sparse_matmul(lhs, rhs, oi, O, work=bucket.work)
     want = block_sparse_matmul_ref(lhs, rhs, oi, O)
     err, rel = rel_err(got, want)
     if not rel <= TOL[torch.float64]:
-        fail(f"largest bucket: kernel vs plain rel err {rel:.3e}")
+        fail(f"{what}: kernel vs plain rel err {rel:.3e}")
     idx = oi.long()
 
     def library():
@@ -1198,9 +1281,8 @@ def planned_pipeline(dev, record, space, terms, mpo):
                                           plain_ms=lambda: block_sparse_matmul_ref(lhs, rhs, oi, O),
                                           library_ms=library), dict(ms=20, plain_ms=20, library_ms=20)),
                **bound(flops, PEAK_FLOPS[lhs.dtype], nbytes))
-    log("  largest bucket " + json.dumps(row))
-    rec["largest_bucket"] = row
-    return rec
+    log(f"  {what} " + json.dumps(row))
+    return row
 
 
 def assert_no_recovery(what: str, res) -> dict:
@@ -1536,17 +1618,20 @@ def serve_path(dev):
     if launches["block_gemm"] == 0:
         fail("the served slot launched no block GEMM")
 
-    # the first and last J2 alone, against the batch
+    # the first and last J2 alone, against the batch (untimed: the entry
+    # points run beside them)
     singles = []
-    for b in (0, nb - 1):
-        space, mpo = built[b]
-        mpo = [BlockSparseTensor(w.indices, {k: v.to(dev) for k, v in w.blocks.items()}, w.charge) for w in mpo]
-        t0 = time.perf_counter()
-        r = run_dmrg(space, None, SERVE_SITES, bond_schedule=specs[b].bond_schedule,
-                     sweeps_per_bond=specs[b].sweeps_per_bond, davidson_iters=specs[b].davidson_iters,
-                     cutoff=specs[b].cutoff, mpo=mpo, algo="batched", jit_matvec=True, device=dev)
-        singles.append(dict(J2=SERVE_J2[b], energy=r.energy, abs_diff=abs(r.energy - rec["energies"][b]),
-                            seconds=time.perf_counter() - t0, ladder=assert_no_recovery(f"single J2={SERVE_J2[b]}", r)))
+    with ThreadPoolExecutor(max_workers=len(ENTRY_POINTS)) as pool:
+        chains = start_entry_points(pool)
+        for b in (0, nb - 1):
+            space, mpo = built[b]
+            mpo = [BlockSparseTensor(w.indices, {k: v.to(dev) for k, v in w.blocks.items()}, w.charge) for w in mpo]
+            r = run_dmrg(space, None, SERVE_SITES, bond_schedule=specs[b].bond_schedule,
+                         sweeps_per_bond=specs[b].sweeps_per_bond, davidson_iters=specs[b].davidson_iters,
+                         cutoff=specs[b].cutoff, mpo=mpo, algo="batched", jit_matvec=True, device=dev)
+            singles.append(dict(J2=SERVE_J2[b], energy=r.energy, abs_diff=abs(r.energy - rec["energies"][b]),
+                                ladder=assert_no_recovery(f"single J2={SERVE_J2[b]}", r)))
+        rec["entry_points"] = finish_entry_points(chains)
     rec["singles"] = singles
     log("  singles " + json.dumps(singles))
     if not all(x["abs_diff"] < 1e-10 for x in singles):
@@ -1612,34 +1697,84 @@ def serve_path(dev):
     log("  largest folded bucket " + json.dumps(row))
     rec["largest_folded_bucket"] = row
     del warm, eng, ops, T, W, A, Bx, x, t, a, b, lhs, rhs, per
+    return rec
 
-    # the CLI quickstart on the card, in its own process
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.serve", *SERVE_CLI], cwd=ROOT, capture_output=True,
-                          text=True, timeout=900, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    rec["cli"] = dict(returncode=proc.returncode, seconds=time.perf_counter() - t0,
-                      tail=proc.stdout.strip().splitlines()[-4:])
-    log("  cli " + json.dumps(rec["cli"]))
-    if proc.returncode != 0 or "CHECK OK" not in proc.stdout:
-        fail(f"serve CLI --check exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+
+def start_entry_points(pool) -> dict:
+    """ENTRY_POINTS started side by side on the card (see phase 16 above):
+    a future per chain, each the list of its commands' runs."""
+    import shutil
+
+    store = ROOT / "chiprun_out" / "plan_store_cli"
+    shutil.rmtree(store, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def chain(cmds):
+        runs = []
+        for cmd in cmds:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, *(a.replace("{store}", str(store)) for a in cmd)], cwd=ROOT,
+                                  capture_output=True, text=True, timeout=600, env=env)
+            runs.append(dict(args=cmd, returncode=proc.returncode, seconds=time.perf_counter() - t0,
+                             out=proc.stdout, err=proc.stderr))
+            if proc.returncode != 0:
+                break
+        return runs
+
+    return {name: pool.submit(chain, cmds) for name, cmds in ENTRY_POINTS.items()}
+
+
+def finish_entry_points(chains) -> dict:
+    """Each chain's runs held to their checks: exit code 0 everywhere, the
+    serve CLIs' "CHECK OK", 0 plan builds on the primed store, and the DMRG
+    entry point's ED line within 1e-8.  Their seconds were taken side by
+    side and beside the single runs."""
+    rec = {}
+    for name, fut in chains.items():
+        runs = fut.result()
+        for r in runs:
+            if r["returncode"] != 0:
+                fail(f"entry point {' '.join(r['args'])} exited {r['returncode']}: {r['out'][-1500:]} "
+                     f"{r['err'][-1500:]}")
+        rec[name] = [dict(args=r["args"], seconds=r["seconds"], tail=r["out"].strip().splitlines()[-6:])
+                     for r in runs]
+        log(f"  entry point {name}: " + json.dumps(rec[name]))
+        out = runs[-1]["out"]
+        if name in ("serve", "plan_store") and "CHECK OK" not in out:
+            fail(f"the serve CLI {' '.join(runs[-1]['args'])}: {out[-1500:]}")
+        if name == "plan_store" and "plan store: 0 plan builds" not in out:
+            fail(f"the serve CLI on the primed store: {out[-1500:]}")
+    out = chains["electrons"].result()[-1]["out"]
+    found = re.search(r"ground-state energy estimate: +(\S+)", out)
+    ed_line = re.search(r"ED reference: +(\S+) \(\|err\|=(\S+)\)", out)
+    if not found or not ed_line or not float(ed_line.group(2)) <= 1e-8:
+        fail(f"the entry point {' '.join(ELECTRON_CLI)}: {out[-1500:]}")
+    rec["electrons"][-1].update(energy=float(found.group(1)), ed=float(ed_line.group(1)),
+                                ed_err=float(ed_line.group(2)))
     return rec
 
 
 # ---------------------------------------------------------------- phase 17
-def spmd_path(dev, space, terms, mpo):
-    """run_dmrg(spmd=True) on the 8x4 cylinder in each of SPMD_WORLDS (see
-    phase 17 above), against the single-process batched run."""
+def spmd_path(dev):
+    """run_dmrg(spmd=True) on the SPMD_LX x SPMD_LY cylinder in each of
+    SPMD_WORLDS (see phase 17 above), against the single-process batched
+    run."""
     import shutil
 
-    from repro_torch.core import run_dmrg
+    from repro_torch.core import run_dmrg, spin_system
+    from repro_torch.core.mpo import build_mpo, compress_mpo
 
+    n = SPMD_LX * SPMD_LY
+    space, terms = spin_system(SPMD_LX, SPMD_LY)
+    mpo = compress_mpo(build_mpo(space, terms, n, device=dev), cutoff=1e-13)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = run_dmrg(space, terms, len(mpo), bond_schedule=SPMD_BONDS, sweeps_per_bond=1, davidson_iters=2, mpo=mpo,
+    ref = run_dmrg(space, terms, n, bond_schedule=SPMD_BONDS, sweeps_per_bond=1, davidson_iters=2, mpo=mpo,
                    algo="batched", jit_matvec=True, device=dev)
     torch.cuda.synchronize()
-    rec = {"bonds": SPMD_BONDS, "reference": dict(energies=ref.energies, wall_s=time.perf_counter() - t0,
-                                                   seconds=[s.seconds for s in ref.sweep_stats])}
+    rec = {"lx": SPMD_LX, "ly": SPMD_LY, "bonds": SPMD_BONDS,
+           "reference": dict(energies=ref.energies, wall_s=time.perf_counter() - t0,
+                             seconds=[s.seconds for s in ref.sweep_stats])}
     log("  single-process batched " + json.dumps(rec["reference"]))
     rec["worlds"] = []
     for world, backend, mesh in SPMD_WORLDS:
@@ -1649,7 +1784,8 @@ def spmd_path(dev, space, terms, mpo):
         proc = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(world),
              str(ROOT / "scripts" / "spmd_dmrg.py"), "--backend", backend, "--mesh", mesh, "--probe",
-             "--bonds", ",".join(map(str, SPMD_BONDS)), "--davidson-iters", "2", "--out", str(out)],
+             "--lx", str(SPMD_LX), "--ly", str(SPMD_LY), "--bonds", ",".join(map(str, SPMD_BONDS)),
+             "--davidson-iters", "2", "--out", str(out)],
             cwd=ROOT, capture_output=True, text=True, timeout=600, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
         wall = time.perf_counter() - t0
         if proc.returncode != 0:
@@ -1687,8 +1823,8 @@ def spmd_path(dev, space, terms, mpo):
 
 # ---------------------------------------------------------------- phase 18
 def plan_store_path():
-    """The cold and the primed process on one plan store, then the serve CLI
-    on a store primed by --warmup (see phase 18 above)."""
+    """The cold and the primed process on one plan store (see phase 18
+    above)."""
     import shutil
 
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -1714,22 +1850,6 @@ def plan_store_path():
              f"{primed['sweep_captures']}")
     if not rec["max_abs_diff"] < 1e-10:
         fail(f"primed energies {primed['energies']} vs cold {cold['energies']}")
-
-    cli_store = ROOT / "chiprun_out" / "plan_store_cli"
-    shutil.rmtree(cli_store, ignore_errors=True)
-    rec["cli"] = []
-    for args in (["--warmup", STORE_WARMUP, "--batch", "2"], STORE_CLI):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "repro_torch.serve", *args, "--plan-store", str(cli_store)],
-                              cwd=ROOT, capture_output=True, text=True, timeout=600, env=env)
-        rec["cli"].append(dict(args=args, returncode=proc.returncode, seconds=time.perf_counter() - t0,
-                               tail=proc.stdout.strip().splitlines()[-6:]))
-        log("  cli " + json.dumps(rec["cli"][-1]))
-        if proc.returncode != 0:
-            fail(f"serve CLI {args} exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
-    out = proc.stdout
-    if "CHECK OK" not in out or "plan store: 0 plan builds" not in out:
-        fail(f"the serve CLI on the primed store: {out[-1500:]}")
     return rec
 
 
@@ -2493,6 +2613,91 @@ def backward_timings(dev) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------- phase 22
+def electron_run(dev, name, space, terms, mpo):
+    """One width-6 run on the path ``name`` (scripts/electron_sweeps.py
+    ``run_path``, see phase 22 above): its record, held to its checks,
+    and its result."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from electron_sweeps import run_path
+
+    rec, res = run_path(space, terms, mpo, name, ELECTRON_BONDS, dev)
+    sweeps, chosen, variants = rec["sweeps"], rec["backend_counts"], rec["variant_launches"]
+    for st in sweeps:
+        log(f"  {name} sweep " + json.dumps(st))
+        # one launch per csr contraction, one per bucket of a batched one
+        launched = sum(st["block_gemm_launches"].values())
+        if launched < st["backend_counts"]["csr"] + st["buckets"]:
+            fail(f"electrons {name} at m={st['m']}: {launched} block GEMM launches for {st['backend_counts']['csr']} "
+                 f"csr contractions and {st['buckets']} buckets")
+    es = [r["energy"] for r in sweeps]
+    if not all(np.isfinite(es)) or not all(es[i + 1] <= es[i] + 1e-10 for i in range(len(es) - 1)):
+        fail(f"electrons {name} sweep energies {es}")
+    if any(r["davidson_exhausted"] for r in sweeps):
+        fail(f"electrons {name}: a sweep had exhausted Davidson solves")
+    if (chosen["csr"] + chosen["batched"] > 0) != (rec["launches"] > 0) or (name != "auto" and chosen[name] == 0):
+        fail(f"electrons {name}: contractions by backend {chosen}, block GEMM launches {variants}")
+    rec["ladder"] = assert_no_recovery(f"the electron {name} run", res)
+    log(f"  {name}: {rec['wall_s']:.1f} s, sweeps {[round(r['seconds'], 2) for r in sweeps]} s, work lists "
+        f"{[round(r['work_list_ms'], 1) for r in sweeps]} ms, contractions {chosen}, {rec['buckets']} buckets, "
+        f"block_gemm {variants}, peak {rec['peak_gib']:.2f} GiB, csr packed {rec['csr_packed']}, SVD host syncs "
+        f"{rec['svd_host_syncs']} over {rec['svd_calls']} splits; last E {es[-1]:.12f}")
+    return rec, res
+
+
+def electron_path(dev, entry):
+    """The paper's electron system on the card (see phase 22 above): the
+    3x2 patch through the planned pipeline against ED and the entry point's
+    run (``entry``, phase 16), the width-6 runs, and the block GEMM on the
+    csr run's and the batched run's middle-bond matvecs."""
+    from repro_torch.core import run_dmrg
+    from repro_torch.core.ed import ground_energy
+    from repro_torch.core.env import get_contractor
+    from repro_torch.core.models import electron_system
+    from repro_torch.core.mpo import build_mpo, compress_mpo, mpo_bond_dims
+    from repro_torch.core.mps import neel_states, total_charge
+
+    space, small = electron_system(3, 2)
+    e_ed = ground_energy(space, small, 6, charge=total_charge(space, neel_states(space, 6)))
+    e_small = run_dmrg(space, small, 6, bond_schedule=(8, 16, 32, 64), sweeps_per_bond=2, davidson_iters=4,
+                       algo="batched", jit_matvec=True, device=dev).energy
+    small_rec = dict(e_ed=e_ed, e_batched=e_small, e_entry_point=entry["energy"], entry_point_err=entry["ed_err"])
+    log(f"  3x2 patch: ED {e_ed:.12f}; batched with graphs {e_small:.12f} |dE_ED| {abs(e_small - e_ed):.2e}; the "
+        f"entry point on csr {entry['energy']:.10f} |err| {entry['ed_err']:.2e}")
+    if not (abs(e_small - e_ed) <= 1e-8 and abs(entry["energy"] - e_ed) <= 1e-8):
+        fail(f"3x2 electrons: batched {e_small}, entry point {entry['energy']}, ED {e_ed}")
+
+    space, terms = electron_system(ELECTRON_LX, ELECTRON_LY)
+    mpo = compress_mpo(build_mpo(space, terms, ELECTRON_LX * ELECTRON_LY, device=dev), cutoff=1e-13)
+    dims = mpo_bond_dims(mpo)
+    if max(dims) != 26:
+        fail(f"the width-6 MPO compressed to k={max(dims)}, not 26")
+    runs, results = {}, {}
+    for name in ELECTRON_PATHS:
+        runs[name], res = electron_run(dev, name, space, terms, mpo)
+        if name != "auto":
+            results[name] = res
+    del res
+    last = {k: r["sweeps"][-1]["energy"] for k, r in runs.items()}
+    spread = max(last.values()) - min(last.values())
+    if not spread <= 1e-8:
+        fail(f"electron last-sweep energies across paths {last}")
+
+    # the block GEMM on the csr run's middle-bond matvec at the top bond
+    j, rows = middle_bond_matvec(get_contractor("csr", dev), results.pop("csr"), mpo, dev)
+    # and on the batched run's: its largest bucket and a bucket of extent 1
+    engine = get_contractor("batched", dev)
+    _, ops = padded_middle_bond(engine, results.pop("batched"), mpo)
+    cands = matvec_buckets(dev, engine, *ops)
+    thin = [c for c in cands if min(c[2].m, c[2].k, c[2].n) == 1]
+    if not thin:
+        fail(f"the batched electron matvec at m={ELECTRON_BONDS[-1]} has no bucket of extent 1")
+    buckets = dict(count=len(cands), largest=bucket_row(dev, max(cands, key=lambda c: c[0]), "largest bucket"),
+                   extent_1=bucket_row(dev, max(thin, key=lambda c: c[0]), "largest bucket of extent 1"))
+    return dict(small=small_rec, mpo_bond_dims=dims, lx=ELECTRON_LX, ly=ELECTRON_LY, bonds=ELECTRON_BONDS, runs=runs,
+                last_energy_spread=spread, middle_bond=j, matvec_steps=rows, batched_buckets=buckets)
+
+
 def timed(fns, reps):
     """Each function's time, the faster of two interleaved CUDA-event means."""
     runs = {k: [] for k in fns}
@@ -2516,6 +2721,12 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(phase: str):  # seconds of the phase that just ended
+        now = time.perf_counter()
+        laps[phase], t_lap[0] = now - t_lap[0], now
+
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2567,6 +2778,7 @@ def main():
     record["kernel_cases_rel_err"] = {str(k)[6:]: v for k, v in worst.items()}
     record["dense_f64"] = dmma_rate(dev)
 
+    lap("1, 2")
     # ---- phase 3: small exact check
     sp = spin_half_space()
     terms = heisenberg_j1j2_terms(3, 2, 1.0, 0.5, cylinder=False)
@@ -2581,6 +2793,7 @@ def main():
         fail(f"3x2 csr {e_csr} vs csr_ref {e_ref}")
     record["small"] = {"e_csr": e_csr, "e_csr_ref": e_ref, "e_ed": e_ed}
 
+    lap("3")
     # ---- phase 4: full size
     space, terms = spin_system(8, 4)
     n = 32
@@ -2622,65 +2835,79 @@ def main():
                                  variant_launches=gemm_variants, peak_gib=peak_gb, ladder=ladder4,
                                  middle_bond=j, matvec_steps=mid))
 
+    lap("4")
     # ---- phase 5: LM kernels vs plain
     log("phase 5: flash attention and RWKV6 scan vs plain")
     record["lm_kernel_cases_rel_err"] = lm_kernel_cases(dev)
 
+    lap("5")
     # ---- phases 6, 7: the LM serving path at full width
     record["lm"] = {}
     for phase, arch in ((6, "llama3_8b"), (7, "rwkv6_3b")):
         log(f"phase {phase}: {arch} at full width, prefill B={LM_BATCH} x S={LM_SEQ}, then serve.main")
         record["lm"][arch] = lm_full_width(arch, dev)
 
+    lap("6, 7")
     # ---- phase 8: decode vs prefill
     log("phase 8: cached decode vs prefill, smoke size, f32")
     record["decode_vs_prefill_max_abs"] = decode_vs_prefill(dev)
 
+    lap("8")
     # ---- phase 9: LM kernel timings
     log("phase 9: flash attention and RWKV6 scan timed at the prefill's shapes")
     timing = lm_kernel_timings(dev)
     record["lm_kernel_timings"] = timing
 
+    lap("9")
     # ---- phase 10: the planned pipeline
     log("phase 10: run_dmrg(algo=\"batched\", jit_matvec=True): 3x2, then the 8x4 run on the full BONDS")
     record["planned"] = planned = planned_pipeline(dev, record, space, terms, mpo)
 
+    lap("10")
     # ---- phase 11: the slice's path, auto
     log("phase 11: run_dmrg(algo=\"auto\", jit_matvec=True): the 8x4 run on the full BONDS")
     auto, auto_res = auto_path(dev, record, space, terms, mpo)
     record["auto"] = auto
 
+    lap("11")
     # ---- phase 12: dense against batched at full size
     log("phase 12: one middle-bond matvec through dense, batched and list engines; 3x2 dense and auto vs ED")
     record["dense_vs_batched"] = dense_vs_batched(dev, auto_res, mpo)
 
+    lap("12")
     # ---- phase 13: faults on the card
     log("phase 13: each DMRG fault point armed once on the 6-site chain, held to a clean run")
     record["faults"] = faults_on_card(dev)
 
+    lap("13")
     # ---- phase 14: checkpoint and resume
     log("phase 14: 8x4 auto run killed mid-sweep, resumed from its checkpoints")
     record["resume"] = checkpoint_resume(dev, space, terms, mpo)
 
+    lap("14")
     # ---- phase 15: observables
     log("phase 15: observables on the 3x2 case against ED, and on the 8x4 auto ground state")
     record["observables"] = observables(dev, auto_res, space)
     del auto_res
 
+    lap("15")
     # ---- phase 16: the serving path
     log(f"phase 16: DMRG-as-a-service, {SERVE_MODEL} {SERVE_SITES} sites m={SERVE_BOND}, one slot of "
-        f"{len(SERVE_J2)} J2 values; then the CLI quickstart with --check")
+        f"{len(SERVE_J2)} J2 values; the entry points beside its single runs")
     record["serve"] = served = serve_path(dev)
 
+    lap("16")
     # ---- phase 17: distributed DMRG
-    log(f"phase 17: run_dmrg(spmd=True) on the 8x4 cylinder, bonds {SPMD_BONDS}, worlds {SPMD_WORLDS}")
-    record["spmd"] = spmd_rec = spmd_path(dev, space, terms, mpo)
+    log(f"phase 17: run_dmrg(spmd=True) on the {SPMD_LX}x{SPMD_LY} cylinder, bonds {SPMD_BONDS}, worlds "
+        f"{SPMD_WORLDS}")
+    record["spmd"] = spmd_rec = spmd_path(dev)
 
+    lap("17")
     # ---- phase 18: the plan store
-    log(f"phase 18: the plan store: auto 8x4 at bonds {STORE_BONDS} cold, then primed in a fresh process; the "
-        f"serve CLI with --warmup and --plan-store")
+    log(f"phase 18: the plan store: auto 8x4 at bonds {STORE_BONDS} cold, then primed in a fresh process")
     record["plan_store"] = store_rec = plan_store_path()
 
+    lap("18")
     # ---- phase 19: the other LM families
     record["families"] = {}
     for arch, spec in FAMILIES.items():
@@ -2690,6 +2917,7 @@ def main():
     families = record["families"]
     record["families_s"] = sum(r["wall_s"] for r in families.values())
 
+    lap("19")
     # ---- phase 20: training
     log(f"phase 20: training at full width: the backward kernels vs plain, float32 gradients vs the plain path, "
         f"{', '.join(TRAIN_ARCHS)} B={TRAIN_BATCH} x S={TRAIN_SEQ}, {TRAIN_STEPS} timed steps; then the train CLI")
@@ -2697,6 +2925,7 @@ def main():
     record["train"] = trained = train_path(dev)
     trained["wall_s"] = time.perf_counter() - t0
 
+    lap("20")
     # ---- phase 21: training under a mesh
     log(f"phase 21: training under a mesh: {', '.join(r[0] for r in MESH_RUNS)}, B={MESH_BATCH} x S={MESH_SEQ}, "
         f"{MESH_STEPS} steps each against one device; restore onto another mesh; the DMRG cell at m={MESH_DMRG['m']}")
@@ -2704,7 +2933,18 @@ def main():
     record["mesh"] = meshed = mesh_path(dev)
     meshed["wall_s"] = time.perf_counter() - t0
 
-    # ---- phase 22: summary
+    lap("21")
+    # ---- phase 22: the electron system
+    log(f"phase 22: the electron system: the 3x2 patch through batched with graphs against ED; the "
+        f"width-{ELECTRON_LY} cylinder ({ELECTRON_LX * ELECTRON_LY} sites) through {', '.join(ELECTRON_PATHS)} at "
+        f"bonds {ELECTRON_BONDS}; the csr and batched middle-bond matvecs")
+    t0 = time.perf_counter()
+    record["electrons"] = electrons = electron_path(dev, served["entry_points"]["electrons"][-1])
+    electrons["wall_s"] = time.perf_counter() - t0
+    emid, ebk = electrons["matvec_steps"], {k: electrons["batched_buckets"][k] for k in ("largest", "extent_1")}
+
+    lap("22")
+    # ---- phase 23: summary
     total = lambda k: sum(r[k] for r in mid)
     bound_ops = sum(r["bound_ms"] for r in mid if r["bound_by"] == "operations")
     bucket = planned["largest_bucket"]
@@ -2712,8 +2952,9 @@ def main():
         name="block_gemm", route="cuda", source="src/repro_torch/kernels/block_gemm/block_gemm.cu",
         replaces="src/repro/kernels/block_gemm/kernel.py:59",
         launches=(launches["block_gemm"] + planned["launches"]["block_gemm"] + auto["launches"]["block_gemm"]
-                  + served["launches"]["block_gemm"] + sum(sum(w["launches"]) for w in spmd_rec["worlds"])),
-        max_abs_err=max([r["max_abs_err"] for r in mid] + [bucket["max_abs_err"]]
+                  + served["launches"]["block_gemm"] + sum(sum(w["launches"]) for w in spmd_rec["worlds"])
+                  + sum(r["launches"] for r in electrons["runs"].values())),
+        max_abs_err=max([r["max_abs_err"] for r in mid + emid + list(ebk.values())] + [bucket["max_abs_err"]]
                         + [c["max_abs_err"] for w in spmd_rec["worlds"] for c in w["largest_chunk"]]), ms=total("ms"),
         plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
         bound_by="operations" if bound_ops >= total("bound_ms") / 2 else "bytes",
@@ -2735,7 +2976,18 @@ def main():
                    launches=w["launches"], variants=w["variant_launches"],
                    **{k: w["largest_chunk"][0][k] for k in
                       ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")})
-                  for w in spmd_rec["worlds"]}},
+                  for w in spmd_rec["worlds"]},
+               **{f"electrons {name} (phase 22)" + {
+                   "csr": f"; ms etc.: the middle-bond matvec's four launches at m={ELECTRON_BONDS[-1]}",
+                   "batched": "; ms etc.: the middle-bond matvec's largest bucket, and its largest of extent 1",
+               }.get(name, ""): dict(
+                   launches=r["launches"], variants=r["variant_launches"], buckets=r["buckets"],
+                   **({k: sum(x[k] for x in emid) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                      if name == "csr" else {}),
+                   **({k: ebk["largest"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                       "max_abs_err")} | {"extent_1": ebk["extent_1"]}
+                      if name == "batched" else {}))
+                  for name, r in electrons["runs"].items()}},
     )]
     flash_runs = {"llama3_8b": record["lm"]["llama3_8b"], **families}
     family_rows = [r for r in timing.values() if "archs" in r]
@@ -2790,6 +3042,7 @@ def main():
         mesh_paths(entries[-1], name, meshed)
     record["kernels"] = entries
     record["total_s"] = time.perf_counter() - t_start
+    record["phase_s"] = laps
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1))
@@ -2882,7 +3135,9 @@ def main():
         f"block_gemm {served['variant_launches']}, captures {served['warmup_captures']} in warmup and "
         f"{served['captures_after_warmup']} after, peak {served['peak_gib']:.2f} GiB; singles |dE| {single_diffs}; "
         f"folded bucket {fb['ms']:.4f} ms (8 separate {fb['separate_ms']:.4f}, bmm + index_add_ "
-        f"{fb['library_ms']:.4f}, bound {fb['bound_ms']:.4f}); CLI {served['cli']['seconds']:.1f} s")
+        f"{fb['library_ms']:.4f}, bound {fb['bound_ms']:.4f})")
+    log("entry points, side by side: " + "; ".join(
+        f"{k} " + " then ".join(f"{r['seconds']:.1f} s" for r in v) for k, v in served["entry_points"].items()))
     for w in spmd_rec["worlds"]:
         c = w["largest_chunk"][0]
         log(f"spmd world {w['world']} ({w['backend']}, {w['mesh']}): {w['run_s'][0]:.1f} s run ({w['wall_s']:.1f} s "
@@ -2894,8 +3149,21 @@ def main():
     log(f"plan store: cold {cold['plan_builds']} plan builds, {sum(cold['sweep_captures'])} captures in its sweeps, "
         f"first sweep {cold['seconds'][0]:.2f} s; primed 0 builds, {primed['warmup']['captures']} captures in "
         f"{primed['warmup']['seconds']:.2f} s of warmup and {sum(primed['sweep_captures'])} in its sweeps, first sweep "
-        f"{primed['seconds'][0]:.2f} s; |dE| {store_rec['max_abs_diff']:.1e}; CLI warmup "
-        f"{store_rec['cli'][0]['seconds']:.1f} s, CLI on the store {store_rec['cli'][1]['seconds']:.1f} s")
+        f"{primed['seconds'][0]:.2f} s; |dE| {store_rec['max_abs_diff']:.1e}")
+    esm = electrons["small"]
+    log(f"electrons: 3x2 entry point |err| {esm['entry_point_err']:.2e}, batched with graphs "
+        f"|dE_ED| {abs(esm['e_batched'] - esm['e_ed']):.2e}; width {ELECTRON_LY} x {ELECTRON_LX} at bonds "
+        f"{ELECTRON_BONDS}: " + "; ".join(
+            f"{k} {r['wall_s']:.1f} s (sweeps {[round(x['seconds'], 2) for x in r['sweeps']]}), block_gemm "
+            f"{r['variant_launches']}, peak {r['peak_gib']:.2f} GiB" for k, r in electrons["runs"].items())
+        + f"; last energies within {electrons['last_energy_spread']:.1e}; matvec at m={ELECTRON_BONDS[-1]} "
+        f"{sum(x['ms'] for x in emid):.4f} ms (plain {sum(x['plain_ms'] for x in emid):.3f}, bmm + index_add_ "
+        f"{sum(x['library_ms'] for x in emid):.4f}, bound {sum(x['bound_ms'] for x in emid):.4f}); batched buckets "
+        + ", ".join(f"{k} [{r['P']}, {r['M']}, {r['K']}, {r['N']}] {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+                    f"bmm + index_add_ {r['library_ms']:.4f}, bound {r['bound_ms']:.4f})"
+                    for k, r in (("largest", ebk["largest"]), ("extent 1", ebk["extent_1"])))
+        + f" of {electrons['batched_buckets']['count']}; phase 22 {electrons['wall_s']:.1f} s")
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))
     log(f"total {record['total_s']:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

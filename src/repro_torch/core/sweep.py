@@ -61,6 +61,7 @@ from .. import kernels
 from ..device import resolve_device
 from ..dist.batch import pad_block_sparse, unpad_block_sparse
 from ..dist import faults
+from ..dist import plan as plan_mod
 from ..dist.engine import ContractionEngine
 from ..dist.faults import RECOVERABLE, FaultInjected
 from ..tensor.blocksparse import BlockSparseTensor, contract, flip_flow, svd_split
@@ -101,6 +102,13 @@ class SweepStats:
     # contractions this sweep per backend (under "auto", the cost model's
     # choices); with jit_matvec these too count captures, not replays
     backend_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # shape buckets those batched contractions ran, one block GEMM launch
+    # each (captures and eager calls, as backend_counts)
+    buckets: int = 0
+    # block GEMM work lists the host planner built this sweep, and their
+    # milliseconds (dist/plan.py WORK_LISTS)
+    work_lists: int = 0
+    work_list_ms: float = 0.0
     # the engine's graph cache (dist/graphs.py): its counters' growth this
     # sweep (graph_captures, graph_replays, evictions, buffer_growths,
     # capture_seconds, instantiate_seconds) and its pool_bytes and
@@ -360,6 +368,8 @@ class DMRGEngine:
         engine = self._engine
         flops0 = self._flop_counters()
         counts0 = dict(engine.backend_counts) if engine is not None else {}
+        buckets0 = engine.buckets if engine is not None else 0
+        work0 = dict(plan_mod.WORK_LISTS)
         graphs0 = self._graph_stats()
         launches0 = dict(kernels.VARIANT_LAUNCHES["block_gemm"])
         t0 = time.perf_counter()
@@ -429,6 +439,9 @@ class DMRGEngine:
             flops_list=flops1[0] - flops0[0],
             flops_csr=flops1[1] - flops0[1],
             backend_counts={k: c - counts0[k] for k, c in engine.backend_counts.items()} if engine is not None else {},
+            buckets=engine.buckets - buckets0 if engine is not None else 0,
+            work_lists=plan_mod.WORK_LISTS["calls"] - work0["calls"],
+            work_list_ms=plan_mod.WORK_LISTS["ms"] - work0["ms"],
             graphs={k: v if k in ("pool_bytes", "buffer_bytes", "graphs") else v - graphs0[k] for k, v in graphs1.items()},
             block_gemm_launches={
                 k: n - launches0[k] for k, n in kernels.VARIANT_LAUNCHES["block_gemm"].items()

@@ -114,6 +114,9 @@ class ContractionEngine:
         self.backend_flops: Dict[str, float] = {k: 0.0 for k in BACKENDS + ("spmd",)}
         self.backend_seconds: Dict[str, float] = {k: 0.0 for k in BACKENDS + ("spmd",)}
         self.flops_list = 0.0
+        self.buckets = 0
+        # the csr backend's packed operands: packs, bytes summed, the largest
+        self.csr_packed = {"packs": 0, "bytes": 0, "max_bytes": 0}
         # the degradation ladders' ledger, stage-keyed: failed first attempts
         # and the rung that recovered each (the sweep's env and pair ladders
         # report here too, through note_retry / note_degradation)
@@ -143,6 +146,8 @@ class ContractionEngine:
             plan = self.cache.get(a, b, axes)
         backend = "spmd" if self._spmd_mode else self.backend_for(plan)
         self.backend_counts[backend] += 1
+        if backend in ("batched", "spmd"):
+            self.buckets += plan.batched.num_buckets
         self.backend_flops[backend] += self._plan_flops(plan, backend)
         self.flops_list += plan.flops_list
         t0 = time.perf_counter()
@@ -270,6 +275,10 @@ class ContractionEngine:
             return BlockSparseTensor(plan.out_indices, {}, plan.out_charge)
         L = plan.csr
         lhs, rhs, oi, work, ext = self.pack_csr(plan, a, b)
+        nbytes = lhs.nbytes + rhs.nbytes
+        self.csr_packed["packs"] += 1
+        self.csr_packed["bytes"] += nbytes
+        self.csr_packed["max_bytes"] = max(self.csr_packed["max_bytes"], nbytes)
         out_padded = block_sparse_matmul(
             lhs, rhs, oi, len(L.out_keys), work=work, extents=ext, use_kernel=self.use_kernel
         )
@@ -470,6 +479,8 @@ class ContractionEngine:
         return {
             "plan_cache": self.cache.stats(),
             "backend_counts": dict(self.backend_counts),
+            "buckets": self.buckets,
+            "csr_packed": dict(self.csr_packed),
             "backend_flops": dict(self.backend_flops),
             "backend_seconds": dict(self.backend_seconds),
             "flops_list": self.flops_list,

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -55,6 +56,21 @@ def plan_signature(a: BlockSparseTensor, b: BlockSparseTensor, axes: Axes) -> Pl
         b.indices, b.charge, tuple(sorted(b.blocks)),
         tuple(axes[0]), tuple(axes[1]),
     )
+
+
+# Host time of the block GEMM work lists built here (a new csr layout, a new
+# bucket, a new folded batch size), process-wide: calls and milliseconds.
+# A sweep reports their growth (SweepStats.work_lists, work_list_ms).
+WORK_LISTS = {"calls": 0, "ms": 0.0}
+
+
+def _timed_work(build, *args) -> WorkList:
+    t0 = time.perf_counter()
+    try:
+        return build(*args)
+    finally:
+        WORK_LISTS["calls"] += 1
+        WORK_LISTS["ms"] += (time.perf_counter() - t0) * 1e3
 
 
 def _prod(xs) -> int:
@@ -106,7 +122,7 @@ class CsrLayout:
     def work(self) -> WorkList:
         """The block GEMM kernel's work list of this layout, built once."""
         if self._work is None:
-            self._work = work_list(self.seg, self.extents, self.bm, self.bk, self.bn)
+            self._work = _timed_work(work_list, self.seg, self.extents, self.bm, self.bk, self.bn)
         return self._work
 
     def device_tables(self, device: torch.device):
@@ -152,7 +168,8 @@ class ShapeBucket:
         extents: a bucket has no padding inside it) and shared with every
         bucket of the same segments and shape."""
         if self._work is None:
-            self._work = shared_work_list(segments(self.oi, len(self.out_keys)), self.m, self.k, self.n)
+            self._work = _timed_work(shared_work_list, segments(self.oi, len(self.out_keys)), self.m, self.k,
+                                     self.n)
         return self._work
 
     def folded_oi(self, batch: int) -> np.ndarray:
@@ -171,7 +188,7 @@ class ShapeBucket:
         wl = self._folded.get(batch)
         if wl is None:
             seg = segments(self.folded_oi(batch), batch * len(self.out_keys))
-            wl = self._folded[batch] = shared_work_list(seg, self.m, self.k, self.n)
+            wl = self._folded[batch] = _timed_work(shared_work_list, seg, self.m, self.k, self.n)
         return wl
 
 

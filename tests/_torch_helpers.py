@@ -8,6 +8,7 @@ import torch
 
 from repro.tensor import blocksparse as jbs
 from repro.tensor import qn as jqn
+from repro_torch.kernels.block_gemm.work import WRITTEN, ZEROS
 from repro_torch.tensor import blocksparse as tbs
 from repro_torch.tensor import qn as tqn
 
@@ -91,32 +92,34 @@ def jax_from_arrays(arrays):
 SLICE_KW = dict(sweeps_per_bond=2, davidson_iters=4)
 
 
-def jax_reference(space, terms, n, bond_schedule, **run_kw):
+def jax_reference(space, terms, n, bond_schedule, charge=(0,), slice_kw=SLICE_KW, **run_kw):
     """The JAX run the slice is held to: by default ``algo="list"`` with
     the seed per-sector SVD and the three-call environment updates
     (``run_kw`` replaces these), on an MPO built and compressed by the JAX
-    package.  Returns plain data: the MPO and the final MPS as arrays,
-    per-sweep energies and Davidson restarts, and the exact ground energy in
-    the Sz=0 sector."""
+    package, with ``slice_kw`` (sweeps per bond, Davidson iterations).
+    Returns plain data: the MPO and the final MPS as arrays, per-sweep
+    energies and Davidson restarts, and the exact ground energy in the
+    sector of total ``charge``."""
     from repro.core.dmrg import run_dmrg
     from repro.core.ed import ground_energy
     from repro.core.mpo import build_mpo, compress_mpo, mpo_bond_dims
 
     mpo = compress_mpo(build_mpo(space, terms, n), cutoff=1e-13)
     run_kw = run_kw or dict(algo="list", svd_method="unplanned", jit_env=False)
-    res = run_dmrg(space, terms, n, bond_schedule=bond_schedule, mpo=mpo, **run_kw, **SLICE_KW)
+    res = run_dmrg(space, terms, n, bond_schedule=bond_schedule, mpo=mpo, **run_kw, **slice_kw)
     return dict(
         mpo=[to_arrays(w) for w in mpo],
         mpo_bond_dims=mpo_bond_dims(mpo),
         mps=[to_arrays(t) for t in res.mps.tensors],
         energies=res.energies,
         restarts=[s.davidson_restarts for s in res.sweep_stats],
-        e_ed=ground_energy(space, terms, n, charge=(0,)),
+        e_ed=ground_energy(space, terms, n, charge=charge),
     )
 
 
-def check_slice(ref, space, terms, n, bond_schedule, algo, ed_tol, **port_kw):
-    """The port's ``run_dmrg`` (with ``port_kw``) on the carried-across JAX
+def check_slice(ref, space, terms, n, bond_schedule, algo, ed_tol, slice_kw=SLICE_KW, **port_kw):
+    """The port's ``run_dmrg`` (with ``port_kw`` and the reference run's
+    ``slice_kw``) on the carried-across JAX
     MPO, held to the JAX run sweep by sweep (<1e-10) and to exact
     diagonalization (``ed_tol``).  Both sides must restart Davidson equally
     often; a restart draws different random directions in the two packages
@@ -127,7 +130,7 @@ def check_slice(ref, space, terms, n, bond_schedule, algo, ed_tol, **port_kw):
 
     mpo = mpo_from_arrays(ref["mpo"], device="cpu")
     res = run_dmrg(space, terms, n, bond_schedule=bond_schedule, algo=algo, mpo=mpo, device="cpu",
-                   **port_kw, **SLICE_KW)
+                   **port_kw, **slice_kw)
     restarts = [s.davidson_restarts for s in res.sweep_stats]
     assert abs(res.energy - ref["e_ed"]) <= ed_tol, (res.energy, ref["e_ed"])
     assert all(s.davidson_exhausted == 0 for s in res.sweep_stats)
@@ -147,3 +150,62 @@ def rand_sectors(rng, nq=1, max_sectors=3, max_dim=4):
         if q not in uniq:
             uniq.append(q)
     return tuple((q, int(rng.integers(1, max_dim + 1))) for q in uniq[: rng.integers(1, max_sectors + 1)])
+
+
+# ------------------------------------------ the block GEMM kernel's work list
+def work_origin(tile, work, BM, BN):
+    mt_all, nt_all = -(-BM // work.tm), -(-BN // work.tn)
+    return tile // (mt_all * nt_all), (tile // nt_all) % mt_all, tile % nt_all
+
+
+def work_walk(item, ext, work):
+    """The (pair, k-tile) units of one item, walked as the kernel walks:
+    pairs of no depth are skipped."""
+    tile, p, kt, units = (int(x) for x in item[:4])
+    out = []
+    for u in range(units):
+        if u > 0:
+            kt += 1
+            while kt >= -(-ext[p][1] // work.tk):
+                p, kt = p + 1, 0
+        out.append((tile, p, kt))
+    return out
+
+
+def work_emulate(lhs, rhs, ext, work, O):
+    """The kernel's two passes in torch: each item sums its units' tile
+    products (operands zero beyond each pair's extents) into out or its
+    slot; the second pass sums slots in order, or writes zeros."""
+    P, BM, BK = lhs.shape
+    BN = rhs.shape[2]
+    tm, tn, tk = work.tm, work.tn, work.tk
+    out = torch.full((O, BM, BN), float("nan"), dtype=torch.float64)
+    ws = torch.full((work.n_slots, tm, tn), float("nan"), dtype=torch.float64)
+    for item in work.items:
+        dest = int(item[4])
+        acc = torch.zeros((tm, tn), dtype=torch.float64)
+        for tile, p, kt in work_walk(item, ext, work):
+            o, mt, nt = work_origin(tile, work, BM, BN)
+            m0, n0, k0 = mt * tm, nt * tn, kt * tk
+            pm, pk, pn = ext[p]
+            a = torch.zeros((tm, tk), dtype=torch.float64)
+            b = torch.zeros((tk, tn), dtype=torch.float64)
+            a[: max(min(pm, BM) - m0, 0), : max(min(pk, BK) - k0, 0)] = lhs[p, m0:pm, k0:pk][:tm, :tk]
+            b[: max(min(pk, BK) - k0, 0), : max(min(pn, BN) - n0, 0)] = rhs[p, k0:pk, n0:pn][:tk, :tn]
+            acc += a @ b
+        o, mt, nt = work_origin(int(item[0]), work, BM, BN)
+        m0, n0 = mt * tm, nt * tn
+        if dest < 0:
+            out[o, m0:m0 + tm, n0:n0 + tn] = acc[: BM - m0, : BN - n0]
+        else:
+            ws[dest] = acc
+    for tile, state in enumerate(work.tile_fix.tolist()):
+        if state == WRITTEN:
+            continue
+        o, mt, nt = work_origin(tile, work, BM, BN)
+        first, count = (0, 0) if state == ZEROS else (int(x) for x in work.fix[state])
+        acc = torch.zeros((tm, tn), dtype=torch.float64)
+        for i in range(count):
+            acc = acc + ws[first + i]
+        out[o, mt * tm:(mt + 1) * tm, nt * tn:(nt + 1) * tn] = acc[: BM - mt * tm, : BN - nt * tn]
+    return out

@@ -160,6 +160,113 @@ def test_slice_on_card_matches_ed(card):
     assert abs(res.energy - ground_energy(sp, terms, 6, charge=(0,))) <= 1e-8
 
 
+# ------------------------------------------------------ the electron system
+@pytest.fixture(scope="module")
+def electron_middle():
+    """The middle-bond matvec of the width-6 triangular Hubbard cylinder (2
+    columns, 12 sites; d=4, two U(1) charges) after csr sweeps at bonds
+    (16, 128) on the card: its operands and the step axes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import run_dmrg
+    from repro_torch.core.env import extend_left, extend_right, get_contractor, left_edge, right_edge
+    from repro_torch.core.models import electron_system
+    from repro_torch.core.mpo import build_mpo, compress_mpo
+
+    card, n = torch.device("cuda"), 12
+    space, terms = electron_system(2, 6)
+    mpo = compress_mpo(build_mpo(space, terms, n, device=card), cutoff=1e-13)
+    res = run_dmrg(space, terms, n, bond_schedule=(16, 128), sweeps_per_bond=1, davidson_iters=2, algo="csr",
+                   svd_method="unplanned", jit_env=False, mpo=mpo, device=card)
+    T, j = res.mps.tensors, n // 2 - 1
+    engine = get_contractor("csr", card)
+    A = left_edge(T[0], mpo[0])
+    for i in range(j):
+        A = extend_left(A, T[i], mpo[i], engine)
+    B = right_edge(T[n - 1], mpo[n - 1])
+    for i in range(n - 2, j, -1):
+        B = extend_right(B, T[i + 1], mpo[i + 1], engine)
+    return A, mpo[j], mpo[j + 1], B, engine(T[j], T[j + 1], ((2,), (0,)))
+
+
+def _electron_steps(backend, ops):
+    """(engine, plan, a, b) of the four matvec steps on ``backend``."""
+    from repro_torch.core.env import get_contractor
+    from repro_torch.dist.engine import MATVEC_AXES
+
+    A, Wj, Wj1, B, t = ops
+    engine = get_contractor(backend, t.device)
+    for i, axes in enumerate(MATVEC_AXES):
+        a, b = (A, t) if i == 0 else (t, (Wj, Wj1, B)[i - 1])
+        yield engine, engine.cache.get(a, b, axes), a, b
+        t = engine(a, b, axes)
+
+
+def _launch_and_check(lhs, rhs, oi, num_out, **kw):
+    """One counted launch against the plain version (1e-12 relative in
+    f64); the variant it took."""
+    before = dict(kernels.VARIANT_LAUNCHES["block_gemm"])
+    got = block_sparse_matmul(lhs, rhs, oi, num_out, **kw)
+    torch.cuda.synchronize()
+    took = [k for k, v in kernels.VARIANT_LAUNCHES["block_gemm"].items() if v != before[k]]
+    assert len(took) == 1 and kernels.VARIANT_LAUNCHES["block_gemm"][took[0]] == before[took[0]] + 1
+    want = block_sparse_matmul_ref(lhs, rhs, oi, num_out)
+    assert (got - want).abs().max().item() <= TOL[torch.float64] * max(want.abs().max().item(), 1e-300)
+    return took[0]
+
+
+def test_block_gemm_on_electron_csr_operands(card, electron_middle):
+    """The csr backend's packed operands of the electron matvec (every pair
+    padded to the step's largest block, its true extents passed): the
+    kernel against the plain version on each step, over pairs as small as
+    1 x 1 x 1, on both variants."""
+    variants, small = set(), 0
+    for engine, plan, a, b in _electron_steps("csr", electron_middle):
+        lhs, rhs, oi, work, ext = engine.pack_csr(plan, a, b)
+        variants.add(_launch_and_check(lhs, rhs, oi, len(plan.csr.out_keys), work=work, extents=ext))
+        small += int((ext.min(dim=1).values <= 4).sum())
+    assert variants == {"skinny", "tiled_dmma"}
+    assert small > 0
+
+
+def test_block_gemm_on_electron_buckets(card, electron_middle):
+    """The batched backend's shape buckets of the same matvec (exact block
+    shapes, no padding): the kernel against the plain version on every
+    bucket, on both variants, with buckets of extent 1."""
+    from repro_torch.dist.batch import bucket_operands, matricize_lhs, matricize_rhs
+
+    variants, shapes = set(), []
+    for _, plan, a, b in _electron_steps("batched", electron_middle):
+        am, bm = matricize_lhs(a, plan.keep_a, plan.ax_a), matricize_rhs(b, plan.keep_b, plan.ax_b)
+        for bucket, oi in zip(plan.batched.buckets, plan.batched.device_tables(a.device)):
+            lhs, rhs = bucket_operands(bucket, am, bm)
+            variants.add(_launch_and_check(lhs, rhs, oi, len(bucket.out_keys), work=bucket.work))
+            shapes.append((bucket.m, bucket.k, bucket.n))
+    assert variants == {"skinny", "tiled_dmma"}
+    assert min(min(s) for s in shapes) == 1 and max(max(s) for s in shapes) >= 64
+
+
+@pytest.mark.parametrize("BM,BK,BN", [(160, 100, 90), (400, 16, 16)], ids=["tiled", "skinny"])
+def test_block_gemm_at_tiny_extents_with_a_wide_spread(card, BM, BK, BN):
+    """Two thousand pairs, most with extents of 1-4 and a few spanning the
+    whole padded block, over hundreds of output blocks (some empty): the
+    electron system's spread of block sizes, on each route."""
+    rng = np.random.default_rng(7)
+    P, O = 2000, 300
+    big = rng.random(P) < 0.05
+    ext = np.where(big[:, None], rng.integers(1, [BM + 1, BK + 1, BN + 1], (P, 3)),
+                   rng.integers(1, 5, (P, 3))).astype(np.int32)
+    oi = np.sort(rng.integers(0, O, P))
+    lhs = torch.zeros((P, BM, BK), dtype=torch.float64)
+    rhs = torch.zeros((P, BK, BN), dtype=torch.float64)
+    for p, (m, k, n) in enumerate(ext):
+        lhs[p, :m, :k] = torch.from_numpy(rng.standard_normal((m, k)))
+        rhs[p, :k, :n] = torch.from_numpy(rng.standard_normal((k, n)))
+    lhs, rhs = lhs.to(card), rhs.to(card)
+    want_variant = "skinny" if BK <= 16 and BN <= 16 else "tiled_dmma"
+    assert _launch_and_check(lhs, rhs, oi, O, extents=torch.from_numpy(ext).to(card)) == want_variant
+
+
 # ------------------------------------------------ flash attention, rwkv6 scan
 # Flash attention per output row, max over rows of ||got - want|| / ||want||
 # (chip_smoke.py's metric and limits): 2e-5 in float32 (the reference's

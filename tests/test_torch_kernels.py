@@ -21,7 +21,7 @@ from repro_torch.kernels.block_gemm.ops import block_sparse_matmul, segments  # 
 from repro_torch.kernels.block_gemm.ref import block_sparse_matmul_ref  # noqa: E402
 from repro_torch.kernels.block_gemm.work import WRITTEN, ZEROS, route, work_list  # noqa: E402
 
-from _torch_helpers import CASES, make_both  # noqa: E402
+from _torch_helpers import CASES, make_both, work_emulate, work_walk  # noqa: E402
 
 # (P, BM, BK, BN, out_idx, num_out): output block 2 has no pair; BK=200
 # spans two of the JAX kernel's 128-deep k-tiles; ragged M/N edges
@@ -149,25 +149,6 @@ def _work_case(name, rng):
     return lhs, rhs, np.array(oi), O, ext, work_list(seg, ext.astype(np.int32), BM, BK, BN)
 
 
-def _origin(tile, work, BM, BN):
-    mt_all, nt_all = -(-BM // work.tm), -(-BN // work.tn)
-    return tile // (mt_all * nt_all), (tile // nt_all) % mt_all, tile % nt_all
-
-
-def _walk(item, ext, work):
-    """The (pair, k-tile) units of one item, walked as the kernel walks:
-    pairs of no depth are skipped."""
-    tile, p, kt, units = (int(x) for x in item[:4])
-    out = []
-    for u in range(units):
-        if u > 0:
-            kt += 1
-            while kt >= -(-ext[p][1] // work.tk):
-                p, kt = p + 1, 0
-        out.append((tile, p, kt))
-    return out
-
-
 @pytest.mark.parametrize("case", sorted(WORK_CASES))
 def test_work_list_covers_every_unit_once(case):
     """Every (pair, k-tile) of an output block is in exactly one work item
@@ -189,7 +170,7 @@ def test_work_list_covers_every_unit_once(case):
             for nt in range(-(-cols // work.tn)):
                 tile = (o * mt_all + mt) * nt_all + nt
                 want += [(tile, p, kt) for p in pairs for kt in range(-(-ext[p][1] // work.tk))]
-    got = [u for item in work.items for u in _walk(item, ext, work)]
+    got = [u for item in work.items for u in work_walk(item, ext, work)]
     assert sorted(got) == sorted(want) and len(set(got)) == len(got)
     dests = {}
     for item in work.items:
@@ -210,52 +191,13 @@ def test_work_list_covers_every_unit_once(case):
         assert work.n_slots > 0  # the planner did cut a segment
 
 
-def _emulate(lhs, rhs, ext, work, O):
-    """The kernel's two passes in torch: each item sums its units' tile
-    products (operands zero beyond each pair's extents) into out or its
-    slot; the second pass sums slots in order, or writes zeros."""
-    P, BM, BK = lhs.shape
-    BN = rhs.shape[2]
-    tm, tn, tk = work.tm, work.tn, work.tk
-    out = torch.full((O, BM, BN), float("nan"), dtype=torch.float64)
-    ws = torch.full((work.n_slots, tm, tn), float("nan"), dtype=torch.float64)
-    for item in work.items:
-        dest = int(item[4])
-        acc = torch.zeros((tm, tn), dtype=torch.float64)
-        for tile, p, kt in _walk(item, ext, work):
-            o, mt, nt = _origin(tile, work, BM, BN)
-            m0, n0, k0 = mt * tm, nt * tn, kt * tk
-            pm, pk, pn = ext[p]
-            a = torch.zeros((tm, tk), dtype=torch.float64)
-            b = torch.zeros((tk, tn), dtype=torch.float64)
-            a[: max(min(pm, BM) - m0, 0), : max(min(pk, BK) - k0, 0)] = lhs[p, m0:pm, k0:pk][:tm, :tk]
-            b[: max(min(pk, BK) - k0, 0), : max(min(pn, BN) - n0, 0)] = rhs[p, k0:pk, n0:pn][:tk, :tn]
-            acc += a @ b
-        o, mt, nt = _origin(int(item[0]), work, BM, BN)
-        m0, n0 = mt * tm, nt * tn
-        if dest < 0:
-            out[o, m0:m0 + tm, n0:n0 + tn] = acc[: BM - m0, : BN - n0]
-        else:
-            ws[dest] = acc
-    for tile, state in enumerate(work.tile_fix.tolist()):
-        if state == WRITTEN:
-            continue
-        o, mt, nt = _origin(tile, work, BM, BN)
-        first, count = (0, 0) if state == ZEROS else (int(x) for x in work.fix[state])
-        acc = torch.zeros((tm, tn), dtype=torch.float64)
-        for i in range(count):
-            acc = acc + ws[first + i]
-        out[o, mt * tm:(mt + 1) * tm, nt * tn:(nt + 1) * tn] = acc[: BM - mt * tm, : BN - nt * tn]
-    return out
-
-
 @pytest.mark.parametrize("case", sorted(WORK_CASES))
 def test_two_pass_emulation_matches_plain(case):
     """The kernel's split and second pass, emulated in torch over the work
     list, equal the plain version to 1e-13 of the largest |value| in f64,
     with every element of the padded output written and empty blocks zero."""
     lhs, rhs, oi, O, ext, work = _work_case(case, np.random.default_rng(6))
-    got = _emulate(lhs, rhs, ext, work, O)
+    got = work_emulate(lhs, rhs, ext, work, O)
     want = block_sparse_matmul_ref(lhs, rhs, oi, O)
     assert not got.isnan().any()
     assert (got - want).abs().max().item() <= 1e-13 * max(want.abs().max().item(), 1.0)

@@ -25,8 +25,7 @@ from repro_torch.serve import stacked as tst  # noqa: E402
 from repro_torch.serve import svd_split_multi  # noqa: E402
 from repro_torch.tensor import blocksparse as tbs  # noqa: E402
 
-from _torch_helpers import IN, OUT, S1, S2, SP, make_both, rand_sectors, specs  # noqa: E402
-from test_torch_kernels import _emulate  # noqa: E402
+from _torch_helpers import IN, OUT, S1, S2, SP, make_both, rand_sectors, specs, work_emulate  # noqa: E402
 
 B = 3
 
@@ -151,7 +150,7 @@ def test_folded_work_list_covers_the_batch():
         np.testing.assert_array_equal(work.items, want_wl.items)
         lhs, rhs = tbatch.bucket_operands(bucket, mats_a, mats_b)
         ext = np.tile(np.array([bucket.m, bucket.k, bucket.n]), (4 * P, 1))
-        got = _emulate(lhs, rhs, ext, work, 4 * O).view(4, O, bucket.m, bucket.n)
+        got = work_emulate(lhs, rhs, ext, work, 4 * O).view(4, O, bucket.m, bucket.n)
         for b in range(4):
             one_a = tbatch.matricize_lhs(pa[b][1], plan.keep_a, plan.ax_a)
             one_b = tbatch.matricize_rhs(pb[b][1], plan.keep_b, plan.ax_b)
